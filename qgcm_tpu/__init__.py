@@ -1,16 +1,19 @@
-"""qgcm_tpu: a TPU-native quasi-geostrophic coupled ocean-atmosphere model.
+"""qgcm_tpu: a quasi-geostrophic coupled ocean-atmosphere model in JAX.
 
 A brand-new JAX/XLA implementation with the capabilities of Q-GCM v1.5.0
-(k247 fork; reference Fortran at /root/reference). This is NOT a port:
-the numerics are re-derived for TPU hardware -- batched 2-D spectral
-elliptic solves instead of sequential tridiagonal sweeps, fused stencil
-updates under jit, `lax.scan` time loops, and `shard_map` domain
-decomposition over a device mesh.
+(k247 fork). This is NOT a port: the numerics are re-derived for an
+accelerator -- batched 2-D spectral elliptic solves instead of
+sequential tridiagonal sweeps, fused stencil updates under jit,
+`lax.scan` time loops, and `shard_map` domain decomposition over a
+device mesh. It runs on an NVIDIA GPU (production) and on the CPU
+(tests); qgcm_tpu/backend.py decides what differs between them.
 
 Precision policy: model *initialisation* (eigenmodes, radiation balance,
 homogeneous solutions, constraint matrices) always runs in float64 on the
 host (NumPy). The *stepped fields* run in a configurable dtype:
-float64 for parity testing on CPU, float32 for TPU production speed.
+float64 by default on the CPU (parity with the double-precision
+reference), float32 by default on the GPU for throughput (float64 on
+request).
 """
 
 import jax

@@ -10,8 +10,8 @@ mechanically, to machine precision (pinned against central finite
 differences in tests/test_adjoint.py).
 
 The memory problem every adjoint model faces (storing the forward
-trajectory for the backward sweep) is handled the TPU way: the
-runners accept `remat=True` (models/stepper.py), wrapping the scan
+trajectory for the backward sweep) is handled by rematerialisation:
+the runners accept `remat=True` (models/stepper.py), wrapping the scan
 body in `jax.checkpoint` so the backward pass stores ONE state carry
 per step-pair / coupling cycle and recomputes the step internals --
 the standard trade of FLOPs for HBM.
@@ -55,15 +55,12 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
     save the spectral GEMM outputs (18% faster backward, more memory);
     False = store the whole forward trajectory (short runs only).
     segment_steps > 0: HOST-LEVEL checkpointing for horizons whose
-    in-program backward exceeds HBM (the 30-day production-channel
-    adjoint needs ~16.5 GB in one program, 740 MB over the v5e; and
-    3-deep nested remat while-loops crash the TPU worker): the
-    forward stores one state per segment on the HOST, then one
+    in-program backward exceeds device memory: the forward stores one state per segment on the HOST, then one
     per-segment VJP program (compiled once, reused) chains cotangents
     backward exactly -- gradient identical to the single-program
     adjoint at machine precision (test_adjoint), memory bounded by
     one segment. Pick segment_steps so the segment's backward fits
-    (<= ~1000 steps at the 4609x577x3 channel).
+    the card (the limit on an 80 GB card is not measured).
     Returns fn(state0, (tauxo, tauyo, fnetoc), n_steps, step0=0)
     -> (loss_value, OceanSensitivity). n_steps is jit-static.
 
@@ -75,27 +72,18 @@ def ocean_sensitivity(model: Model, loss: Callable[[OceanState],
 
     mesh/halo_variant: DISTRIBUTED adjoints -- pass a device mesh
     (and optionally the explicit ppermute halo schedule) and the
-    sharded state; XLA transposes the collectives and the gradient
-    matches the single-device one to ~1e-15 (test_adjoint). Two
-    constraints, both measured round 5: the solver must be the matmul
-    DST (auto at production sizes; set solver_transform="matmul" to
-    force at small ones -- the FFT path's rfft transpose trips an
-    upstream XLA dtype verifier bug under GSPMD), and the a2a pencil
-    solvers stay forward-only (their shard_map cotangents carry
-    mismatched varying-axes annotations), so spectral transforms ride
-    GSPMD in adjoint runs."""
+    sharded state; XLA transposes the collectives. On a mesh the PV
+    inversion runs on the matmul DST: the FFT's rfft transpose fails
+    XLA's verifier under GSPMD in float64 (c64 against c128, on CPU
+    meshes and on H100s alike). A float64 distributed gradient
+    matches the single-device matmul one to ~1e-13 (test_adjoint). The a2a pencil solvers stay forward-only (their
+    shard_map cotangents carry mismatched varying-axes annotations),
+    so spectral transforms ride GSPMD in adjoint runs."""
+    from .model import with_dst
     from .models.ocean import ocean_forcing_from_mean
     from .models.stepper import make_ocean_only_runner
-    from .config import pallas_enabled
-    if pallas_enabled(model.cfg):
-        # the fused Pallas kernel defines no VJP (and its sequential-
-        # vmap fence covers batching, not differentiation): adjoint
-        # runs take the jnp stencil chain, which jax.grad transposes
-        # mechanically. Auto-on f32 TPU models would otherwise fail
-        # to differentiate.
-        import dataclasses
-        model = dataclasses.replace(
-            model, cfg=model.cfg.replace(use_pallas=False))
+    if mesh is not None:
+        model = with_dst(model, "matmul")
     run = make_ocean_only_runner(model, jit=False, remat=remat,
                                  mesh=mesh, halo_variant=halo_variant)
 

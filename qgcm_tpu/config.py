@@ -131,22 +131,6 @@ class ModelConfig:
 
     # --- numerics ---
     dtype: str = "float64"        # dtype of stepped fields
-    # Fused Pallas TPU kernel for the ocean QG vorticity step. None =
-    # auto: on for float32 runs on a TPU backend (bit-exact vs the XLA
-    # chain and 8% faster at NAtl 4801^2 scale; at small grids it is
-    # time-neutral), off elsewhere (the CPU interpreter is slow).
-    # Resolved by pallas_enabled() at model build.
-    use_pallas: bool = None
-    # Box-inversion DST backend: 'auto' picks the MXU sine-matrix
-    # matmul above MATMUL_DST_MIN interior points per axis on float32
-    # TPU runs (measured faster than XLA's FFT there; identical math,
-    # tools/bench_solve.py), FFT otherwise. 'fft'/'matmul' force.
-    solver_transform: str = "auto"
-    # Matmul-DST accumulation: 'highest' (6-pass bf16, accuracy on par
-    # with the f32 FFT) | 'high' (3-pass, ~35% faster solve, rel err
-    # ~6e-5 -- opt in when throughput matters more than the last three
-    # digits of the inversion).
-    solver_precision: str = "highest"
     # Compute BOTH fluids' mixed layers in float64 on float32 runs
     # (store stays float32). None = auto: ON for float32 models. The
     # mixed-layer clamps (ocean SST convection floor omlsubs.F:115-118;
@@ -284,14 +268,6 @@ class ModelConfig:
 # ----------------------------------------------------------------------
 # Canonical experiment presets (reference examples/*/)
 # ----------------------------------------------------------------------
-
-def pallas_enabled(cfg: ModelConfig) -> bool:
-    """Resolve ModelConfig.use_pallas (None = auto: float32 on TPU)."""
-    if cfg.use_pallas is not None:
-        return cfg.use_pallas
-    import jax
-    return cfg.dtype == "float32" and jax.default_backend() == "tpu"
-
 
 def ml_f64_enabled(cfg: ModelConfig) -> bool:
     """Resolve ModelConfig.ml_f64 (None = auto: on for float32)."""

@@ -10,14 +10,14 @@ model states, the full set of forcing fields:
   * diabatic (radiative + sensible/latent) mixed-layer forcings
     fnetoc / fnetat (7.8-7.10).
 
-TPU-native redesign of the two interpolations:
+Redesign of the two interpolations:
   * the bicubic refinement of the atmospheric wind (auvbcu/bcuini,
     xfosubs.F:997-1630) is a LINEAR map from the 4x4 coarse-point
     neighbourhood of each coarse cell to its ndxr^2 fine points. We
     precompute the 16-weight tensors on the host (including the
     mixed-BC / cross-coupled boundary variants, where v's wall-normal
     derivative comes from u via continuity) and apply them as one
-    batched einsum -- an MXU matmul of shape (ncells,16)x(16,ndxr^2) --
+    batched einsum -- a matmul of shape (ncells,16)x(16,ndxr^2) --
     instead of the reference's per-cell scalar loops.
   * the bilinear AST->ocean-grid map (bilint, xfosubs.F:891-996)
     becomes a gather with precomputed indices/weights.

@@ -91,11 +91,11 @@ def area_averages(boxes: AreaBoxes, sst=None, ast=None):
     out_oc = out_at = None
     if sst is not None and len(boxes.names_oc):
         w = jnp.asarray(boxes.w_oc, sst.dtype)
-        out_oc = (jnp.einsum("byx,yx->b", w, sst)
+        out_oc = (jnp.einsum("byx,yx->b", w, sst, precision="highest")
                   / jnp.sum(w, axis=(1, 2)))
     if ast is not None and len(boxes.names_at):
         w = jnp.asarray(boxes.w_at, ast.dtype)
-        out_at = (jnp.einsum("byx,yx->b", w, ast)
+        out_at = (jnp.einsum("byx,yx->b", w, ast, precision="highest")
                   / jnp.sum(w, axis=(1, 2)))
     return out_oc, out_at
 

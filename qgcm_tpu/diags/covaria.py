@@ -18,7 +18,7 @@ of the run:
   atmos equivalents): the packed UNNORMALISED SSP, the mean, and the
   weight sum.
 
-TPU-native form: same subsampling (vectorised), but the streaming
+Vectorised form: same subsampling (vectorised), but the streaming
 update is shift-compensated instead of sequential -- we accumulate
 deviations d = x - x0 from the first snapshot and the packed outer
 products sum_t d_i d_j, then form SSP = sum d_i d_j - s_i s_j / n at

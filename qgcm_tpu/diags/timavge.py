@@ -2,8 +2,8 @@
 
 The reference accumulates sums every step inside the main loop
 (tavatm/tavocn, q-gcm.F:1477-1482) and writes means at interval end
-(tavout -> avges.nc, variable list timavge.F:911-1256). TPU-native
-form: the accumulator is a pytree carried through the `lax.scan` time
+(tavout -> avges.nc, variable list timavge.F:911-1256). Here the
+accumulator is a pytree carried through the `lax.scan` time
 loop, updated on-device each (sub)step; the host divides by the count
 and writes at interval boundaries.
 

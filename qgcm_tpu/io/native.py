@@ -25,19 +25,32 @@ def _lib_path():
     return os.path.join(root, "native", "libqgncwriter.so")
 
 
+def _stale(lib: str, src: str) -> bool:
+    """True when the shared library is missing or older than its
+    source, so a changed ncwriter.cc is never run from an old build."""
+    if not os.path.exists(lib):
+        return True
+    return (os.path.exists(src)
+            and os.path.getmtime(src) > os.path.getmtime(lib))
+
+
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
     path = _lib_path()
-    if not os.path.exists(path):
-        src = os.path.join(os.path.dirname(path), "ncwriter.cc")
+    src = os.path.join(os.path.dirname(path), "ncwriter.cc")
+    if _stale(path, src):
         if not os.path.exists(src):
             raise OSError("native writer source missing")
+        # build beside the target, then rename: concurrent processes
+        # never load a half-written library
+        tmp = f"{path}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O2", "-shared", "-fPIC", "-pthread",
-             "-std=c++17", "-o", path, src],
+             "-std=c++17", "-o", tmp, src],
             check=True, capture_output=True)
+        os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     lib.qgnc_create.argtypes = [ctypes.c_char_p]
     lib.qgnc_def_dim.argtypes = [ctypes.c_int, ctypes.c_char_p,

@@ -12,7 +12,7 @@ everything here is O(grid) static data baked into the jitted step.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import jax.numpy as jnp
@@ -26,8 +26,8 @@ from .topo import Topography, build_topography, TopoSpec
 from .coupling import Coupling, build_coupling
 from .ops.integrals import xintp_weights
 from .solver.helmholtz import (
-    BoxHelmholtz, CyclicHelmholtz, make_box_helmholtz, make_cyclic_helmholtz,
-    resolve_transform, resolve_ytransform,
+    DST_BACKENDS, BoxHelmholtz, CyclicHelmholtz, make_box_helmholtz,
+    make_cyclic_helmholtz,
 )
 
 
@@ -169,17 +169,14 @@ def _channel_homogeneous(helm, nyp: int, nxp: int, yp: np.ndarray,
 
 def _build_ocean_inversion(cfg: ModelConfig, grids: Grids,
                            modes: Modes, wop: np.ndarray,
-                           dtype) -> OceanInversion:
+                           dtype, dst: str = "fft") -> OceanInversion:
     nxpo, nypo = cfg.nxpo, cfg.nypo
     dxo, dyo = grids.dxo, grids.dyo
     nlo = cfg.nlo
 
     if cfg.cyclic_ocean:
         helm = make_cyclic_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2,
-                                     dtype=dtype,
-                                     ytransform=resolve_ytransform(
-                                         cfg, nypo),
-                                     mm_precision=cfg.solver_precision)
+                                     dtype=dtype, ytransform=dst)
         (pbh, pch1, pch2, hbsi, aipbh, aipch,
          hc1s, hc2s, hc1n, hc2n) = _channel_homogeneous(
             helm, nypo, nxpo, grids.ypo, modes.rdm2, dxo, dyo, wop,
@@ -199,10 +196,7 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids,
 
     # Finite box (conhoms.F:544-641)
     helm = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2,
-                              dtype=dtype,
-                              transform=resolve_transform(cfg, nxpo,
-                                                          nypo),
-                              mm_precision=cfg.solver_precision)
+                              dtype=dtype, transform=dst)
     sub = make_box_helmholtz(nxpo, nypo, dxo, dyo, modes.rdm2[1:],
                              dtype=jnp.float64)
     ones = np.ones((nlo - 1, nypo, nxpo))
@@ -230,13 +224,11 @@ def _build_ocean_inversion(cfg: ModelConfig, grids: Grids,
 
 def _build_atmos_inversion(cfg: ModelConfig, grids: Grids,
                            modes: Modes, wap: np.ndarray,
-                           dtype) -> AtmosInversion:
+                           dtype, dst: str = "fft") -> AtmosInversion:
     nxpa, nypa = cfg.nxpa, cfg.nypa
     dxa, dya = grids.dxa, grids.dya
     helm = make_cyclic_helmholtz(nxpa, nypa, dxa, dya, modes.rdm2,
-                                 dtype=dtype,
-                                 ytransform=resolve_ytransform(cfg, nypa),
-                                 mm_precision=cfg.solver_precision)
+                                 dtype=dtype, ytransform=dst)
     (pbh, pch1, pch2, hbsi, aipbh, aipch,
      hc1s, hc2s, hc1n, hc2n) = _channel_homogeneous(
         helm, nypa, nxpa, grids.ypa, modes.rdm2, dxa, dya, wap,
@@ -292,3 +284,23 @@ def build_model(cfg: ModelConfig,
         wap=np.asarray(wap, dtype=dtype),
         r_spl=r_spl,
     )
+
+
+def with_dst(model: Model, dst: str) -> Model:
+    """`model` with every PV-inversion solver on the DST backend `dst`
+    (solver/helmholtz.DST_BACKENDS; build_model gives 'fft')."""
+    if dst not in DST_BACKENDS:
+        raise ValueError(f"dst must be one of {DST_BACKENDS}, got {dst!r}")
+    invs = [i.helm for i in (model.inv_oc, model.inv_at) if i is not None]
+    if all((h.transform if isinstance(h, BoxHelmholtz) else h.ytransform)
+           == dst for h in invs):
+        return model
+    cfg = model.cfg
+    dtype = jnp.dtype(cfg.dtype)
+    inv_oc = None if model.inv_oc is None else _build_ocean_inversion(
+        cfg, model.grids, model.modes_oc,
+        xintp_weights(cfg.nypo, cfg.nxpo), dtype, dst)
+    inv_at = None if model.inv_at is None else _build_atmos_inversion(
+        cfg, model.grids, model.modes_at,
+        xintp_weights(cfg.nypa, cfg.nxpa), dtype, dst)
+    return replace(model, inv_oc=inv_oc, inv_at=inv_at)

@@ -302,8 +302,8 @@ def _atinvq(model: Model, state: AtmosState, qa_new: jnp.ndarray,
 
     ayis = _line_sum_p(sol[:, 1, :]) * (g.dxa / g.dya)
     ayin = -_line_sum_p(sol[:, -2, :]) * (g.dxa / g.dya)
-    clhss = cl2m @ atsnew + ayis
-    clhsn = cl2m @ atnnew - ayin
+    clhss = jnp.matmul(cl2m, atsnew, precision="highest") + ayis
+    clhsn = jnp.matmul(cl2m, atnnew, precision="highest") - ayin
 
     c3 = clhss[0] * inv.hbsiat
     c1 = inv.hc2n * clhss[1:] - inv.hc2s * clhsn[1:]
@@ -311,7 +311,7 @@ def _atinvq(model: Model, state: AtmosState, qa_new: jnp.ndarray,
 
     aipmod = xinhom.at[0].add(c3 * inv.aipbha)
     aipmod = aipmod.at[1:].add((c1 + c2) * inv.aipcha)
-    aiplay = cm2l @ aipmod
+    aiplay = jnp.matmul(cm2l, aipmod, precision="highest")
 
     aient = jnp.zeros(nla - 1, dtype=dtype).at[0].set(xan1)
     est1 = aiplay[:-1] - aiplay[1:]
@@ -447,8 +447,10 @@ def init_atmos_state(model: Model, init: str = "rbal",
         pinn = g.dxa * _line_sum_p(p[:, -1, :])
         cs = _line_sum_p(p[:, 1, :] - p[:, 0, :]) * (g.dxa / g.dya)
         cn = _line_sum_p(p[:, -1, :] - p[:, -2, :]) * (g.dxa / g.dya)
-        cs = -cs + fsq * (amat @ pins)
-        cn = cn + fsq * (amat @ pinn)
+        cs = -cs + fsq * jnp.matmul(amat, pins,
+                                    precision="highest")
+        cn = cn + fsq * jnp.matmul(amat, pinn,
+                                    precision="highest")
         return cs, cn
 
     atmcs, atmcn = momcon(pa)

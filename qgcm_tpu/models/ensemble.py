@@ -2,14 +2,13 @@
 
 The reference runs exactly one trajectory per job (one process,
 src/cntl_q-gcm:8); predictability/ensemble work with Q-GCM means
-re-running the binary per member. On TPU the ensemble is instead a
+re-running the binary per member. Here the ensemble is instead a
 first-class batch axis of ONE compiled program: members ride a leading
 `vmap` axis through the same jitted leapfrog scan, and on a device
-mesh the member axis is sharded so each chip steps its own members.
-Members never interact, so the compiled step contains ZERO cross-chip
-collectives (pinned by tests/test_ensemble.py) and ensemble throughput
-scales linearly with chips -- the framework's analogue of pure data
-parallelism (SURVEY.md section 2, parallelism table).
+mesh the member axis is sharded so each device steps its own members.
+Members never interact, so the compiled step contains ZERO
+cross-device collectives (pinned by tests/test_ensemble.py) -- the
+framework's analogue of pure data parallelism (SURVEY.md section 2, parallelism table).
 
 Typical use:
 
@@ -229,15 +228,10 @@ def make_ensemble_runner(model: Model, kind: str = None,
     members with LOCAL shapes, so the compiled program has no
     collectives at all (GSPMD sharding alone would not: XLA's SPMD
     partitioner replicates FFT ops, all-gathering the member axis at
-    every spectral solve). Spatial sharding and the member axis are
-    alternatives by MEASUREMENT, not fiat (BENCHMARKS.md round 5,
-    tools/bench_ensemble_mesh.py): a member fits one chip at every
-    inventory config (even NAtl holds two members on one v5e), and
-    multi-member-per-chip batching runs at 0.49-0.80x per member at
-    production sizes -- so one-member-per-chip on this zero-collective
-    mesh beats both per-chip batching and any member x rows
-    composition, which would add halo/a2a traffic per member and is
-    bounded by the rows-mesh scaling efficiency.
+    every spectral solve). A member x rows composition would add
+    halo/a2a traffic per member; whether one member per card on this
+    zero-collective mesh beats it, or beats batching several members
+    per card, is not measured on the GPU (tools/bench_ensemble_mesh.py).
 
     Returns run(members, forcing, n_steps, step0=0) for "ocean", or
     run(ocean_members, atmos_members, n_steps, step0=0) for "coupled";
@@ -245,21 +239,6 @@ def make_ensemble_runner(model: Model, kind: str = None,
     if kind is None:
         kind = "ocean" if model.cfg.ocean_only else "coupled"
     ax = mesh.axis_names[0] if mesh is not None else None
-    from ..config import pallas_enabled
-    if pallas_enabled(model.cfg):
-        # Throughput choice (and defence-in-depth): the fused Pallas
-        # kernel now carries a sequential_vmap fence at its own
-        # boundary (ops/pallas_qg.py) -- a member vmap over it is
-        # CORRECT but runs one kernel launch per member serially,
-        # because pallas_call's automatic batching rule miscompiled on
-        # Mosaic (faulted at 961-wide rows; silently corrupted member
-        # trajectories before that). The jnp stencil chain batches
-        # properly under XLA (1.13x over a per-member loop at 961^2,
-        # BENCHMARKS.md round 4), so members use it.
-        import dataclasses
-        model = dataclasses.replace(
-            model, cfg=model.cfg.replace(use_pallas=False))
-
     if kind == "ocean":
         run1 = make_ocean_only_runner(model, jit=False)
 
@@ -269,13 +248,9 @@ def make_ensemble_runner(model: Model, kind: str = None,
                     lambda s: run1(s, f, n_steps, step0))(ms)
             if mesh is not None:
                 _check_divisible(members, mesh)
-                # check_vma=False: pallas_call's out_shape carries
-                # no varying-mesh annotation (same caveat as
-                # parallel/halo.py); the body is member-local
                 body = jax.shard_map(body, mesh=mesh,
                                      in_specs=(P(ax), P()),
-                                     out_specs=P(ax),
-                                     check_vma=False)
+                                     out_specs=P(ax))
             return body(members, forcing)
     elif kind == "coupled":
         run1 = make_coupled_runner(model, jit=False)
@@ -288,8 +263,7 @@ def make_ensemble_runner(model: Model, kind: str = None,
                 _check_divisible(oc_members, mesh)
                 body = jax.shard_map(body, mesh=mesh,
                                      in_specs=(P(ax), P(ax)),
-                                     out_specs=P(ax),
-                                     check_vma=False)
+                                     out_specs=P(ax))
             return body(oc_members, at_members)
     else:
         raise ValueError(f"unknown ensemble kind {kind!r}")

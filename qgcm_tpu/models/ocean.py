@@ -16,7 +16,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import ModelConfig, pallas_enabled
+from ..config import ModelConfig
 from ..model import Model
 from ..ops.stencils import (del2_bc, jacobian9, interior_5pt, _wshift,
                             _eshift, _row_mask, _col_mask)
@@ -247,7 +247,7 @@ def _oml(model: Model, state: OceanState, forcing: OceanForcing):
 # ----------------------------------------------------------------------
 
 def _qgostep(model: Model, state: OceanState, forcing: OceanForcing,
-             entoc: jnp.ndarray, allow_pallas: bool = True):
+             entoc: jnp.ndarray):
     """Leapfrog step of the PV equation (7.14). Returns
     (qo_new, qom_new, and the cyclic boundary-constraint integrals)."""
     cfg = model.cfg
@@ -265,9 +265,6 @@ def _qgostep(model: Model, state: OceanState, forcing: OceanForcing,
     tdto = 2.0 * cfg.dto
 
     po, pom, qo, qom = state.po, state.pom, state.qo, state.qom
-
-    if allow_pallas and pallas_enabled(cfg):
-        return _qgostep_pallas(model, state, forcing, entoc)
 
     # Dissipation operates on the LAGGED pressure (qgosubs.F:88-130)
     del2p = del2_bc(pom, bcfaco, dxom2, cyclic)
@@ -388,7 +385,7 @@ def _cyclic_boundary_terms(model, state, forcing, del2p_s, del2p_n,
 def _edge_d2d4(pom, bcfac, dxm2):
     """Thin-slice recomputation of the 2 wall-adjacent rows of del2p
     and del4p (cyclic case) for the constraint integrals, avoiding a
-    second full-field dissipation pass when the fused kernel is used.
+    second full-field dissipation pass in the shard_map halo path.
     Returns (d2_s, d2_n, d4_s, d4_n), each (nl, 2, nxpo) with row
     order [wall, wall+1] (south) / [wall-1, wall] reversed so index 0
     is nearest the wall... south rows are [0, 1]; north rows [-2, -1]
@@ -409,44 +406,9 @@ def _edge_d2d4(pom, bcfac, dxm2):
     return d2s[:, :2], d2n[:, -2:], d4_s, d4_n
 
 
-def _qgostep_pallas(model, state, forcing, entoc):
-    """Fused-kernel variant of _qgostep (ops/pallas_qg.py)."""
-    from ..ops.pallas_qg import qgstep_pallas
-    cfg = model.cfg
-    g = model.grids
-    cyclic = cfg.cyclic_ocean
-    nlo = cfg.nlo
-    dxom2 = 1.0 / g.dxo**2
-    adfaco = 1.0 / (12.0 * g.dxo * g.dyo * cfg.fnot)
-    bcfaco = cfg.ocean.bccooc * dxom2 / (0.5 * cfg.ocean.bccooc + 1.0)
-    bdrfac = (0.5 * (1.0 if cfg.fnot > 0 else -1.0)
-              * cfg.ocean.delek / cfg.ocean.hoc[-1])
-    tdto = 2.0 * cfg.dto
-    sponge = cfg.sponge.enabled
-    consts = (dxom2, bcfaco, adfaco, 1.0 / cfg.fnot, tdto, bdrfac,
-              cfg.sponge.c1_spl, cfg.beta * float(g.yporel[0]),
-              cfg.beta * g.dyo,
-              cfg.fnot / cfg.ocean.hoc[0], cfg.fnot / cfg.ocean.hoc[1])
-    rspl = (model.r_spl if sponge
-            else jnp.zeros_like(forcing.wekpo))
-    import jax
-    interp = jax.default_backend() == "cpu"
-    qo_new = qgstep_pallas(
-        state.pom, state.po, state.qo, state.qom, forcing.wekpo, entoc,
-        rspl, consts, cfg.ocean.ah2oc, cfg.ocean.ah4oc,
-        cyclic=cyclic, sponge=sponge, interpret=interp)
-    qom_new = state.qo
-    if not cyclic:
-        return qo_new, qom_new, None
-    d2s, d2n, d4s, d4n = _edge_d2d4(state.pom, bcfaco, dxom2)
-    cyc = _cyclic_boundary_terms(model, state, forcing, d2s, d2n,
-                                 d4s, d4n)
-    return qo_new, qom_new, cyc
-
-
 def _qgstep_consts(model):
-    """The python-float constants tuple shared by the fused qgstep
-    kernels (Pallas and shard_map-halo variants)."""
+    """The python-float constants tuple of the shard_map-halo
+    vorticity step (parallel/halo.qgstep_halo)."""
     cfg = model.cfg
     g = model.grids
     dxom2 = 1.0 / g.dxo**2
@@ -460,27 +422,20 @@ def _qgstep_consts(model):
             cfg.fnot / cfg.ocean.hoc[0], cfg.fnot / cfg.ocean.hoc[1])
 
 
-def _qgostep_halo(model, state, forcing, entoc, mesh, variant,
-                  use_pallas=None):
+def _qgostep_halo(model, state, forcing, entoc, mesh, variant):
     """shard_map halo-exchange variant of _qgostep
     (parallel/halo.qgstep_halo): explicit ppermute halos over the mesh
-    'y' axis, bit-identical update. With the Pallas kernel enabled it
-    runs PER SHARD inside the shard_map (mesh runs keep the fused
-    kernel; only bare GSPMD cannot partition a pallas_call). Cyclic
-    constraint integrals are recomputed from thin wall slices like the
-    Pallas path."""
+    'y' axis, bit-identical update. Cyclic constraint integrals are
+    recomputed from thin wall slices (_edge_d2d4)."""
     from ..parallel.halo import qgstep_halo
     cfg = model.cfg
     cyclic = cfg.cyclic_ocean
     sponge = cfg.sponge.enabled
-    if use_pallas is None:
-        use_pallas = pallas_enabled(cfg)
     rspl = (model.r_spl if sponge else jnp.zeros_like(forcing.wekpo))
     qo_new = qgstep_halo(
         state.pom, state.po, state.qo, state.qom, forcing.wekpo, entoc,
         rspl, _qgstep_consts(model), cfg.ocean.ah2oc, cfg.ocean.ah4oc,
-        cyclic=cyclic, sponge=sponge, mesh=mesh, variant=variant,
-        use_pallas=use_pallas)
+        cyclic=cyclic, sponge=sponge, mesh=mesh, variant=variant)
     qom_new = state.qo
     if not cyclic:
         return qo_new, qom_new, None
@@ -553,8 +508,8 @@ def _ocinvq(model: Model, state: OceanState, qo_new: jnp.ndarray,
         # Line integrals of dp/dy of the inhomogeneous solutions
         ayis = _line_sum_p(sol[:, 1, :]) * (g.dxo / g.dyo)
         ayin = -_line_sum_p(sol[:, -2, :]) * (g.dxo / g.dyo)
-        clhss = cl2m @ ocsnew + ayis
-        clhsn = cl2m @ ocnnew - ayin
+        clhss = jnp.matmul(cl2m, ocsnew, precision="highest") + ayis
+        clhsn = jnp.matmul(cl2m, ocnnew, precision="highest") - ayin
 
         # Homogeneous solution coefficients (ocisubs.F:238-246)
         c3 = clhss[0] * inv.hbsioc
@@ -564,7 +519,7 @@ def _ocinvq(model: Model, state: OceanState, qo_new: jnp.ndarray,
         # Area integrals of modal & layer pressures
         aipmod = xinhom.at[0].add(c3 * inv.aipbho)
         aipmod = aipmod.at[1:].add((c1 + c2) * inv.aipcho)
-        aiplay = cm2l @ aipmod
+        aiplay = jnp.matmul(cm2l, aipmod, precision="highest")
 
         # Continuity monitoring + update (ocisubs.F:266-294);
         # entrainment acts across interface 1 only (xon(k>1) = 0)
@@ -631,7 +586,7 @@ def _ocinvq(model: Model, state: OceanState, qo_new: jnp.ndarray,
     dpiocp_new = state.dpioc
     rhsum = jnp.einsum("mk,m->k", inv.cdiffo, xinhom, precision="highest")
     rhs = dpioc_new - rhsum
-    hclco = inv.cdhinv @ rhs
+    hclco = jnp.matmul(inv.cdhinv, rhs, precision="highest")
 
     zero1 = jnp.zeros((1,), dtype)
     coef = jnp.concatenate([zero1, hclco * helm.rdm2[1:]])
@@ -663,18 +618,14 @@ def _ocinvq(model: Model, state: OceanState, qo_new: jnp.ndarray,
 # Full substep + init helpers
 # ----------------------------------------------------------------------
 
-def make_ocean_step(model: Model, halo=None, sharded=False):
+def make_ocean_step(model: Model, halo=None):
     """Build the fused ocean substep:
     oml -> qgostep -> ocinvq -> ocqbdy (main loop q-gcm.F:1222-1255).
 
     halo: optional (mesh, variant) pair routing the vorticity step
     through the explicit shard_map halo-exchange path
     (parallel/halo.py) instead of GSPMD; variant is 'staged', 'deep'
-    or 'overlap', and the fused Pallas kernel (when enabled for the
-    config) runs per shard INSIDE the shard_map. sharded=True with no
-    halo pair (bare-GSPMD mesh run) disables the Pallas kernel path:
-    GSPMD cannot partition a pallas_call -- pass a halo variant to
-    keep the kernel on mesh runs."""
+    or 'overlap'."""
     cfg = model.cfg
     g = model.grids
     dtype = jnp.dtype(cfg.dtype)
@@ -698,8 +649,7 @@ def make_ocean_step(model: Model, halo=None, sharded=False):
                 model, state, forcing, entoc, halo[0], halo[1])
         else:
             qo_new, qom_new, cyc = _qgostep(model, state, forcing,
-                                            entoc,
-                                            allow_pallas=not sharded)
+                                            entoc)
 
         (po_new, pom_new, dpioc, dpiocp, ocncs, ocncn, ocncsp, ocncnp,
          ermaso, emfroc) = _ocinvq(model, state, qo_new, xon1,
@@ -777,8 +727,10 @@ def init_ocean_state(model: Model, init: str = "zero",
             pinn = g.dxo * _line_sum_p(p[:, -1, :])
             cs = _line_sum_p(p[:, 1, :] - p[:, 0, :]) * (g.dxo / g.dyo)
             cn = _line_sum_p(p[:, -1, :] - p[:, -2, :]) * (g.dxo / g.dyo)
-            cs = -cs + fsq * (amat_j @ pins)
-            cn = cn + fsq * (amat_j @ pinn)
+            cs = -cs + fsq * jnp.matmul(amat_j, pins,
+                                        precision="highest")
+            cn = cn + fsq * jnp.matmul(amat_j, pinn,
+                                        precision="highest")
             return cs, cn
 
         ocncs, ocncn = momcon(po)

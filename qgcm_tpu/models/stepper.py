@@ -34,12 +34,10 @@ def _remat_wrap(body, remat):
     """jax.checkpoint wrapper for the scan bodies (reverse-mode
     memory control, adjoint.py). remat truthy: rematerialise the
     body -- the backward pass stores only the per-iteration carry,
-    not the step internals. remat="dots": additionally save MXU
-    dot outputs (the spectral-solve GEMMs), measured 18% faster
-    backward at production channel scale (24.7 vs 30.2 ms/step,
-    BENCHMARKS.md round 5) at the cost of retaining grid-sized GEMM
-    results per step -- prefer it for short-horizon sensitivities,
-    True for long ones."""
+    not the step internals. remat="dots": additionally save dot
+    outputs (the matmul spectral-solve GEMMs) at the cost of retaining
+    grid-sized GEMM results per step -- for short-horizon
+    sensitivities; True for long ones."""
     if not remat:
         return body
     if remat == "dots":
@@ -49,13 +47,12 @@ def _remat_wrap(body, remat):
 
 
 # Per-iteration carry checkpointing alone is O(n) carries on the
-# backward pass -- 2400 saved production-channel states measured an
-# attempted 105 GB allocation on the 16 GB v5e. Nested checkpointed
-# scans bound it at O(levels * LEVEL) carries (the classic
-# multi-level/treeverse trade: one extra forward recompute per
-# nesting level). LEVEL=16 keeps the 30-day production-channel
-# adjoint around ~40 saved carries (~6 GB at the southern state
-# size); 32 measured a worker OOM crash at the same horizon.
+# backward pass -- 2400 saved production-channel states would need
+# ~105 GB. Nested checkpointed scans bound it at O(levels * LEVEL)
+# carries (the classic multi-level/treeverse trade: one extra forward
+# recompute per nesting level). LEVEL=16 keeps the 30-day
+# production-channel adjoint around ~40 saved carries (~6 GB at the
+# southern state size).
 REMAT_LEVEL = 16
 
 
@@ -143,9 +140,9 @@ def make_ocean_only_runner(model: Model, jit: bool = True, mesh=None,
     remat=True wraps the scan body in jax.checkpoint so reverse-mode
     differentiation (adjoint.py) stores only the per-iteration carry
     and recomputes the step's internals (stencil chains, spectral
-    solve stages) on the backward pass -- the standard TPU trade of
-    FLOPs for HBM. remat="dots" additionally saves the MXU GEMM
-    outputs (18% faster backward, more memory; _remat_wrap).
+    solve stages) on the backward pass -- the standard trade of
+    FLOPs for device memory. remat="dots" additionally saves the GEMM
+    outputs (more memory; _remat_wrap).
     Forward-only runs are unaffected (primal computation is
     identical); leave it False unless differentiating.
     """
@@ -154,8 +151,7 @@ def make_ocean_only_runner(model: Model, jit: bool = True, mesh=None,
     if mesh is not None and spectral_variant == "a2a":
         from ..parallel.spectral import wrap_inversions
         model = wrap_inversions(model, mesh)
-    step = make_ocean_step(model, halo=halo,
-                           sharded=mesh is not None)
+    step = make_ocean_step(model, halo=halo)
     if mesh is not None:
         from ..parallel.mesh import constrain_tree
 
@@ -189,8 +185,7 @@ def make_ocean_only_runner(model: Model, jit: bool = True, mesh=None,
         return state
 
     if jit:
-        from ..parallel.mesh import mesh_jit
-        run = mesh_jit(run, mesh, static_argnames=("n_steps",))
+        run = jax.jit(run, static_argnames=("n_steps",))
     return run
 
 
@@ -214,8 +209,7 @@ def make_atmos_only_runner(model: Model, jit: bool = True):
     Returns run(state, sst_mean, n_steps, step0=0) -> state.
     n_steps must be a multiple of nstr: the time loop is structured as
     coupling CYCLES (forcing refresh + nstr atmos steps) rather than
-    per-step `lax.cond` dispatch -- a conditional wrapping the forcing
-    computation measured ~100x slower on TPU than the branchless form.
+    per-step `lax.cond` dispatch around the forcing computation.
     """
     from ..coupling import make_xforc
     xforc = make_xforc(model)
@@ -279,8 +273,7 @@ def make_coupled_runner(model: Model, jit: bool = True, mesh=None,
     xforc = make_xforc(model, mesh=mesh)
     ostep = make_ocean_step(model, halo=(mesh, halo_variant)
                             if (mesh is not None and halo_variant)
-                            else None,
-                            sharded=mesh is not None)
+                            else None)
     astep = make_atmos_step(model)
     nstr = model.cfg.nstr
     if mesh is not None:
@@ -294,8 +287,8 @@ def make_coupled_runner(model: Model, jit: bool = True, mesh=None,
         cyc0 = jnp.asarray(step0) // nstr
 
         # Time loop structured as coupling CYCLES (xforc + one ocean
-        # substep + nstr atmos steps) -- branchless; wrapping the
-        # coupling in a per-step lax.cond measured ~100x slower on TPU.
+        # substep + nstr atmos steps) -- branchless, with no per-step
+        # lax.cond around the coupling.
         def cycle(carry, _):
             oc, at, c = carry
             if mesh is not None:
@@ -324,6 +317,5 @@ def make_coupled_runner(model: Model, jit: bool = True, mesh=None,
         return ocean, atmos
 
     if jit:
-        from ..parallel.mesh import mesh_jit
-        run = mesh_jit(run, mesh, static_argnames=("n_steps",))
+        run = jax.jit(run, static_argnames=("n_steps",))
     return run

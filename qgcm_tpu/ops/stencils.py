@@ -1,14 +1,14 @@
 """Finite-difference stencils on the C-grid p-array.
 
 Array convention throughout the package: fields are [..., y, x]
-(x last = TPU lane dimension). A p-grid field has shape (..., nyp, nxp).
+(x last = the contiguous dimension). A p-grid field has shape (..., nyp, nxp).
 In the cyclic (channel) case column x=nxp-1 duplicates column x=0.
 
-Implementation note (TPU): boundary conditions are applied with
-`jnp.where` row/column masks on full-size shifted expressions rather
-than `.at[].set` updates -- XLA fuses the mask selects into the stencil
+Implementation note: boundary conditions are applied with `jnp.where`
+row/column masks on full-size shifted expressions rather than
+`.at[].set` updates -- XLA fuses the mask selects into the stencil
 kernel, whereas each dynamic-update-slice materialises a full-array
-copy (measured ~25% of the ocean step before this restructuring).
+copy.
 
 Reference semantics:
   del2_bc     -- src/qgosubs.F:94-127 (mixed BCs via bcfac, or cyclic-x)

@@ -1,1 +1,1 @@
-"""Device-mesh parallelism: spatial domain decomposition over TPU chips."""
+"""Device-mesh parallelism: spatial domain decomposition over devices."""

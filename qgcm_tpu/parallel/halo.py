@@ -1,8 +1,8 @@
 """Explicit shard_map halo-exchange path for the QG vorticity step.
 
 The reference parallelises every stencil loop over grid rows with
-OpenMP (src/Structure:60-85; qgosubs.F loops). The TPU-native analogue
-is row-block domain decomposition over the mesh 'y' axis with explicit
+OpenMP (src/Structure:60-85; qgosubs.F loops). The analogue here is
+row-block domain decomposition over the mesh 'y' axis with explicit
 `lax.ppermute` halo exchange between neighbouring shards -- this module
 implements that for the fused vorticity leapfrog chain
 (del2 -> del4 -> del6 of the lagged pressure, Arakawa Jacobian, layer
@@ -24,13 +24,13 @@ part 6 -- staged width-1 vs single width-3 halos):
                once on thin 9-row strips built from the exchanged
                halos. The wide interior compute has NO data dependence
                on the ppermutes, so XLA's latency-hiding scheduler
-               runs the ICI transfers concurrently with it -- the
-               halo exchange is overlapped with Jacobian/Laplacian
-               compute by construction.
+               can run the transfers concurrently with it -- the
+               halo exchange can overlap Jacobian/Laplacian compute
+               by construction.
 
 Boundary conditions are applied by masking on GLOBAL row indices
-(axis_index * block + iota), mirroring ops/stencils.del2_bc and the
-validated Pallas kernel (ops/pallas_qg.py). `lax.ppermute` delivers
+(axis_index * block + iota), mirroring ops/stencils.del2_bc.
+`lax.ppermute` delivers
 ZEROS to shards with no sender, which is precisely the wall
 convention, so domain-edge shards need no special-casing. The x axis
 stays whole within each shard and is handled per stage with the SAME
@@ -112,7 +112,7 @@ def _with_halo_x(f, h, n_shards):
 
 
 # ----------------------------------------------------------------------
-# Globally-indexed stencil stages (mirror ops/stencils + pallas_qg)
+# Globally-indexed stencil stages (mirror ops/stencils)
 # ----------------------------------------------------------------------
 
 def _xnbrs(f, cyclic):
@@ -354,20 +354,10 @@ def _chain2(pomp, pop, qop, qom, wek, ent, rspl, gtop3, gleft3, geom):
 # ----------------------------------------------------------------------
 
 def qgstep_halo(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
-                ah4, *, cyclic, sponge, mesh, variant="overlap",
-                use_pallas=False):
+                ah4, *, cyclic, sponge, mesh, variant="overlap"):
     """Vorticity leapfrog with explicit ppermute halo exchange over the
-    mesh 'y' axis. Same contract as ops/pallas_qg.qgstep_pallas:
-    returns qo_new with zonal rows carrying the OLD qo. Bit-identical
-    to models/ocean._qgostep's update.
-
-    use_pallas=True runs the fused Pallas kernel PER SHARD on the
-    ghost-extended local window (a pallas_call inside shard_map is
-    legal manual SPMD -- only bare GSPMD cannot partition one), so
-    mesh runs keep the kernel's measured single-chip win. In the
-    'overlap' schedule only the wide interior chain moves to the
-    kernel; the thin 9-row edge strips stay jnp, preserving the
-    comm/compute overlap structure.
+    mesh 'y' axis: returns qo_new with zonal rows carrying the OLD qo.
+    Bit-identical to models/ocean._qgostep's update.
 
     Meshes with x > 1 take the 2-D (y,x) decomposition for BOX
     configurations (ghost columns over ppermute('x'), corners via the
@@ -385,8 +375,7 @@ def qgstep_halo(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
                 "make_mesh(rows_only=True) / qgcm run --mesh rows")
         return _qgstep_halo_2d(
             pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2, ah4,
-            sponge=sponge, mesh=mesh, variant=variant,
-            use_pallas=use_pallas)
+            sponge=sponge, mesh=mesh, variant=variant)
     my = mesh.shape[AXIS]
     ny_pad = -(-ny // my) * my
     by = ny_pad // my
@@ -394,9 +383,7 @@ def qgstep_halo(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
         variant = "deep"
     if by < 3:
         # tiny blocks: ghosts would span whole shards; run unsharded
-        # semantics (a my==1 mesh still takes the shard_map path --
-        # its ppermutes have no peers and deliver wall zeros -- so the
-        # kernel-in-shard_map configuration is exercisable on 1 chip)
+        # semantics
         variant = "local"
     geom = (ny, nx, nl, cyclic, sponge, dxm2, bcfac, adfac, rfnot,
             tdt, bdrfac, c1spl, beta_y0, beta_dy, fohfac0, fohfac1,
@@ -405,25 +392,6 @@ def qgstep_halo(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
     def pad_y(f):
         widths = [(0, 0)] * (f.ndim - 2) + [(0, ny_pad - ny), (0, 0)]
         return jnp.pad(f, widths)
-
-    def _pallas_window(pomw, pow_, qow, qom, wek, ent, rspl, gtop3):
-        """Fused kernel on a 3-ghost-row window (nl, R+6, nx): the
-        per-row arrays are zero-extended into the ghost rows (their
-        ghost outputs are discarded) and the kernel's wall/sponge
-        masks key on global rows via row0 = gtop3."""
-        from ..ops.pallas_qg import qgstep_pallas
-        import jax as _jax
-
-        def gpad(f):
-            return jnp.pad(f, [(0, 0)] * (f.ndim - 2)
-                           + [(3, 3), (0, 0)])
-
-        out = qgstep_pallas(
-            pomw, pow_, qow, gpad(qom), gpad(wek), gpad(ent),
-            gpad(rspl), consts, ah2, ah4, cyclic=cyclic, sponge=sponge,
-            interpret=_jax.default_backend() == "cpu",
-            row0=gtop3, ny_total=ny)
-        return out[:, 3:-3]
 
     def local(pom, po, qo, qom, wek, ent, rspl):
         gtop = lax.axis_index(AXIS).astype(jnp.int32) * by
@@ -443,41 +411,21 @@ def qgstep_halo(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
 
         if variant == "deep":
             full = _with_halo(stack, 3, my)
-            if use_pallas:
-                return _pallas_window(full[:nl], full[nl:2 * nl],
-                                      full[2 * nl:], qom, wek, ent,
-                                      rspl, gtop - 3)
             return _chain(full[:nl], full[nl:2 * nl], full[2 * nl:],
                           qom, wek, ent, rspl, gtop - 3, geom)
 
         # 'overlap': the wide interior chain consumes only the local
         # block (zero y-ghosts), so it has no data dependence on the
-        # ppermutes -- XLA overlaps the ICI transfers with it. The
+        # ppermutes -- XLA may overlap the transfers with it. The
         # exchanged halos feed only the thin 9-row edge strips.
         sg, ng = _exchange(stack, 3, my)
         z = jnp.zeros_like(stack[..., :3, :])
         full0 = jnp.concatenate([z, stack, z], axis=-2)
-        if use_pallas:
-            q_int = _pallas_window(full0[:nl], full0[nl:2 * nl],
-                                   full0[2 * nl:], qom, wek, ent,
-                                   rspl, gtop - 3)
-        else:
-            q_int = _chain(full0[:nl], full0[nl:2 * nl],
-                           full0[2 * nl:], qom, wek, ent, rspl,
-                           gtop - 3, geom)
+        q_int = _chain(full0[:nl], full0[nl:2 * nl], full0[2 * nl:],
+                       qom, wek, ent, rspl, gtop - 3, geom)
 
         def band(parts, core_sl, g0):
             strip = jnp.concatenate(parts, axis=-2)
-            if use_pallas:
-                # thin 9-row kernel calls: keeps overlap+pallas
-                # uniformly kernel arithmetic (the jnp chain and the
-                # kernel agree only to the last ulp under the CPU
-                # interpreter at cyclic wrap columns)
-                return _pallas_window(strip[:nl], strip[nl:2 * nl],
-                                      strip[2 * nl:],
-                                      qom[..., core_sl, :],
-                                      wek[core_sl], ent[core_sl],
-                                      rspl[core_sl], g0)
             return _chain(strip[:nl], strip[nl:2 * nl],
                           strip[2 * nl:], qom[..., core_sl, :],
                           wek[core_sl], ent[core_sl],
@@ -504,20 +452,17 @@ def qgstep_halo(pom, po, qo, qom, wekpo, entoc, r_spl, consts, ah2,
     spec2 = P(AXIS, None)
     # in_specs name only 'y': on a 2-D mesh this path is reached only
     # via the my>1, mx==1 shape where 'x' carries nothing
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh
-    # annotation, which the vma checker rejects inside shard_map; the
-    # body is uniform hand-written SPMD so the check adds nothing here
     fn = jax.shard_map(
         local, mesh=mesh,
         in_specs=(spec3, spec3, spec3, spec3, spec2, spec2, spec2),
-        out_specs=spec3, check_vma=False)
+        out_specs=spec3)
     out = fn(pad_y(pom), pad_y(po), pad_y(qo), pad_y(qom),
              pad_y(wekpo), pad_y(entoc), pad_y(r_spl))
     return out[:, :ny]
 
 
 def _qgstep_halo_2d(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
-                    ah2, ah4, *, sponge, mesh, variant, use_pallas):
+                    ah2, ah4, *, sponge, mesh, variant):
     """Box vorticity leapfrog decomposed over BOTH mesh axes: width-3
     row ghosts over ppermute('y'), then width-3 column ghosts of the
     row-extended stack over ppermute('x') (corners ride the second
@@ -526,7 +471,7 @@ def _qgstep_halo_2d(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
 
     'deep' recomputes the chain inside the 3-deep ghost frame; 'overlap'
     evaluates the wide interior from the LOCAL block only (no data
-    dependence on any ppermute, so XLA overlaps the ICI transfers with
+    dependence on any ppermute, so XLA may overlap the transfers with
     it) and patches the 3-cell-wide edge frame from four thin band
     windows built out of the exchanged ghosts. 'staged' has no 2-D
     analogue (it exchanges intermediates) and is coerced to 'deep'."""
@@ -558,30 +503,7 @@ def _qgstep_halo_2d(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
                       entoc, r_spl, -3, -3, geom)
         return out
 
-    def _pallas(pomw, pow_, qow, qomc, wekc, entc, rsplc, gtop3,
-                gleft3):
-        """Fused kernel on a 3-ghost-RING window (nl, R+6, C+6): x
-        ghosts are REAL exchanged columns (x_ext mode); the wall and
-        pad masks key on global (row, col) via (row0, col0)."""
-        from ..ops.pallas_qg import qgstep_pallas
-        import jax as _jax
-
-        def gpad(f):
-            return jnp.pad(f, [(0, 0)] * (f.ndim - 2)
-                           + [(3, 3), (0, 0)])
-
-        out = qgstep_pallas(
-            pomw, pow_, qow, gpad(qomc), gpad(wekc), gpad(entc),
-            gpad(rsplc), consts, ah2, ah4, cyclic=False,
-            sponge=sponge, interpret=_jax.default_backend() == "cpu",
-            row0=gtop3, ny_total=ny, col0=gleft3 + 3, nx_total=nx,
-            x_ext=True)
-        return out[:, 3:-3]
-
     def run_chain(full, qomc, wekc, entc, rsplc, gtop3, gleft3):
-        if use_pallas:
-            return _pallas(full[:nl], full[nl:2 * nl], full[2 * nl:],
-                           qomc, wekc, entc, rsplc, gtop3, gleft3)
         return _chain2(full[:nl], full[nl:2 * nl], full[2 * nl:],
                        qomc, wekc, entc, rsplc, gtop3, gleft3, geom)
 
@@ -641,7 +563,7 @@ def _qgstep_halo_2d(pom, po, qo, qom, wekpo, entoc, r_spl, consts,
     fn = jax.shard_map(
         local, mesh=mesh,
         in_specs=(spec3, spec3, spec3, spec3, spec2, spec2, spec2),
-        out_specs=spec3, check_vma=False)
+        out_specs=spec3)
     out = fn(pad2(pom), pad2(po), pad2(qo), pad2(qom),
              pad2(wekpo), pad2(entoc), pad2(r_spl))
     return out[:, :ny, :nx]

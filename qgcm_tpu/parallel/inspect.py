@@ -1,11 +1,10 @@
 """Collective-communication instrumentation.
 
 Compiles a jitted function and reports the communication ops XLA
-actually emitted -- the TPU-native analogue of inspecting the
-reference's OpenMP schedule (src/Structure:60-85). Used by the
-sharding tests to pin the expected halo-exchange counts of the
-shard_map path (parallel/halo.py) and by tools/bench_halo.py to
-produce the halo-overlap accounting in BENCHMARKS.md.
+actually emitted -- the analogue of inspecting the reference's OpenMP
+schedule (src/Structure:60-85). Used by the sharding tests to pin the
+expected halo-exchange counts of the shard_map path
+(parallel/halo.py) and by tools/bench_halo.py.
 
 Counts are per compiled module: for a `lax.scan` step program the
 while-loop body appears once, so counts are per STEP regardless of
@@ -21,7 +20,7 @@ from typing import NamedTuple
 import jax
 
 # HLO opcodes that move data between devices. The -start/-done async
-# forms (TPU) are folded onto their base opcode.
+# forms are folded onto their base opcode.
 _COLLECTIVES = ("collective-permute", "all-reduce", "all-gather",
                 "all-to-all", "reduce-scatter", "collective-broadcast")
 

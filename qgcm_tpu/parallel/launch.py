@@ -1,12 +1,12 @@
 """Multi-host launch helper.
 
 Replaces the reference's batch job-control script (src/cntl_q-gcm:
-LSF/qsub, 1 process x 32 OpenMP threads via aprun) with the TPU-pod
-equivalent: one controller process per host, joined through
+LSF/qsub, 1 process x 32 OpenMP threads via aprun) with one
+controller process per host, joined through
 `jax.distributed.initialize`, stepping the same jitted program over the
-global mesh. On Cloud TPU the coordinator/process environment variables
-are preset, so `initialize()` needs no arguments; on other clusters
-pass them explicitly (or set JAX_COORDINATOR_ADDRESS etc.).
+global mesh. Pass the coordinator address, process count and process
+id explicitly (or set JAX_COORDINATOR_ADDRESS etc.): nothing on a
+plain GPU host presets them.
 
 Typical multi-host driver:
 

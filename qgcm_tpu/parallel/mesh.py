@@ -1,11 +1,11 @@
 """Device mesh + sharding specifications.
 
 The reference's only parallelism is OpenMP loops over grid rows
-(src/Structure:60-85). The TPU-native equivalent is 2-D spatial domain
+(src/Structure:60-85). The equivalent here is 2-D spatial domain
 decomposition: fields are sharded (y, x) over a Mesh and the jitted step
 runs under GSPMD, which inserts the halo exchanges (collective-permutes)
 for the stencils and the all-to-alls for the spectral solves
-automatically over ICI. Constraint scalars and mode vectors stay
+automatically. Constraint scalars and mode vectors stay
 replicated.
 
 Axis names: 'y' then 'x' -- matching the [..., y, x] array convention.
@@ -63,8 +63,9 @@ def make_hybrid_mesh(devices: Sequence[jax.Device] | None = None,
     transform axis intra-slice): processes (hosts) split the 'y' axis
     and each host's local devices fill 'x'.  The spectral pencil
     transposes' per-axis all_to_all over 'x' (parallel/spectral.py)
-    then rides ICI only; DCN carries the thin y-halo rows and the
-    unavoidable host-crossing share of the full transpose.
+    then stays within a host; the network between hosts carries the
+    thin y-halo rows and the unavoidable host-crossing share of the
+    full transpose.
     rows_only=True stacks local devices on 'y' too (channel configs --
     see make_mesh)."""
     if devices is None:
@@ -90,9 +91,7 @@ def _divisible_spec(mesh: Mesh, x) -> P:
     (p-grids are N+1 points; device_put demands exact divisibility).
     NOTE: inside jit, `with_sharding_constraint` on an uneven dim is
     silently DROPPED by this jax version -- the partitioner still
-    ceil-shards the scan carry internally (verified in
-    tests/test_spectral.py's era, see BENCHMARKS.md), so compute
-    distributes; only program inputs/outputs with uneven dims are
+    ceil-shards the scan carry internally, so compute distributes; only program inputs/outputs with uneven dims are
     replicated, a per-chunk (not per-step) cost."""
     spec = _field_spec(x)
     fixed = tuple(
@@ -125,21 +124,3 @@ def constrain_tree(tree, mesh: Mesh):
 shard_ocean = shard_tree
 shard_atmos = shard_tree
 shard_forcing = shard_tree
-
-
-def mesh_jit(fun, mesh=None, **jit_kwargs):
-    """jax.jit for (possibly) mesh-sharded step programs: plain
-    jax.jit unless a mesh is given AND the backend is TPU, in which
-    case async all_to_all lowering is enabled. The pencil-transpose
-    solvers issue one transpose chain per mode precisely so the
-    latency-hiding scheduler can run one mode's all_to_all
-    concurrently with another's MXU transform stages -- but this XLA
-    pass is off by default (sync all-to-all ops; verified by AOT
-    schedule census, and with the flag the spans enclose 1-13 compute
-    fusions each). The flag is rejected by the CPU compiler, hence
-    the backend gate."""
-    if mesh is not None and jax.default_backend() == "tpu":
-        jit_kwargs.setdefault(
-            "compiler_options",
-            {"xla_tpu_enable_async_all_to_all": "true"})
-    return jax.jit(fun, **jit_kwargs)

@@ -26,7 +26,7 @@ Box pipeline (mesh ('y','x'), my x mx devices, P = my*mx):
                  <-- exact mirror transposes on the inverse
 
 Four all_to_alls per solve; each transform is applied to a fully-local
-axis, so the FFT/MXU-matmul kernels are the exact single-device ones
+axis, so the FFT/matmul kernels are the exact single-device ones
 (results match the unsharded solver to ~1e-15 rel; the channel path is
 bit-exact).
 
@@ -34,8 +34,8 @@ CEIL-ALIGNED PADDING (the part that makes entry/exit free): shard_map
 demands evenly divisible global shapes, but p-grids are N+1 points and
 the surrounding step keeps them ceil-sharded.  Padding the grid to an
 arbitrary even multiple makes the partitioner RESHARD the uneven
-layout -- on the TPU backend that lowered to an all-gather of the full
-(3,4801,4801) field (~277 MB/device) before the transposes even ran.
+layout -- an all-gather of the full field (at NAtl, (3,4801,4801):
+~277 MB/device) before the transposes even ran.
 Instead the entry pad target is exactly my*ceil(nyp/my) rows by
 mx*ceil(nxp/mx) cols: the even blocks coincide with the ceil shards,
 so materialising the pad is LOCAL (only the last shard writes zeros)
@@ -76,7 +76,7 @@ from jax import lax
 from jax.sharding import PartitionSpec as P
 
 from ..solver.helmholtz import (
-    BoxHelmholtz, CyclicHelmholtz, _PREC, _dst1_mm_packed,
+    BoxHelmholtz, CyclicHelmholtz, _HIGHEST, _dst1_mm_packed,
     _idst1_mm_packed, dst1,
 )
 
@@ -157,7 +157,6 @@ class ShardedBoxHelmholtz:
         self.Xs = _pad_up(self.nxi, self.nprocs)  # spectral x extent
         self.ysizes = _block_truesizes(self.nyp, self.my, self.By)
         self.transform = base.transform
-        self.mm_precision = base.mm_precision
         self.norm = base.norm
         self.rdm2 = base.rdm2
         # x-side eigenvalues/weights padded to Xs: lam pads with 1.0
@@ -172,12 +171,12 @@ class ShardedBoxHelmholtz:
     # -- local transform kernels (full axis on-device) ----------------
     def _tx(self, f, axis):
         if self.transform == "matmul":
-            return _dst1_mm_packed(f, axis, _PREC[self.mm_precision])
+            return _dst1_mm_packed(f, axis, _HIGHEST)
         return dst1(f, axis=axis)
 
     def _itx(self, f, axis):
         if self.transform == "matmul":
-            return _idst1_mm_packed(f, axis, _PREC[self.mm_precision])
+            return _idst1_mm_packed(f, axis, _HIGHEST)
         return dst1(f, axis=axis)
 
     def _denom(self):
@@ -207,7 +206,7 @@ class ShardedBoxHelmholtz:
             # one transpose chain PER MODE: each mode's a2a has no
             # dependence on the other modes' transforms, so the
             # latency-hiding scheduler can run mode m+1's all_to_all
-            # concurrently with mode m's MXU transform stages (a
+            # concurrently with mode m's transform stages (a
             # single monolithic a2a serialises the whole solve behind
             # the transpose).
             return jnp.concatenate(

@@ -7,7 +7,7 @@ case; periodic-x in the channel case) by an x-transform (DST-I for the
 box, real FFT for the channel) followed by a *sequential* Thomas solve
 along y for every wavenumber.
 
-TPU-native redesign: the y-direction tridiagonal has CONSTANT
+Redesign: the y-direction tridiagonal has CONSTANT
 coefficients (off-diagonal 1/dy^2, diagonal depending only on the x
 wavenumber), so it is itself diagonalised by a DST-I in y. We therefore
 do a full 2-D transform solve:
@@ -20,8 +20,8 @@ and  lam_y(l) = 2/dy^2 (cos(l pi/ny) - 1)         (DST-I, Dirichlet).
 
 This is the SAME discrete solution (exact arithmetic) as the reference's
 transform+tridiagonal method, but is entirely batched transforms --
-no sequential y recurrence, which would serialise ~1000 tiny steps on
-TPU. Transforms batch over modes and solve both fluids' inversions in
+no sequential y recurrence of ~1000 tiny dependent steps. Transforms
+batch over modes and solve both fluids' inversions in
 one fused jit region.
 
 A Thomas-algorithm variant (`thomas_solve`) is retained for
@@ -37,93 +37,57 @@ import jax.numpy as jnp
 import numpy as np
 
 
-# FFT-vs-matmul crossover, interior points per axis. Round 1 measured
-# the UNSPLIT sine-matrix matmul (tools/bench_solve.py --sweep): FFT
-# won at 959, matmul from ~1439. With the packed scale-folded radix
-# kernels at _MM_SPLIT_MIN=480 (tools/bench_packed_sweep.py, v5e) the
-# matmul wins at every size measured: 575 (2.17 vs 2.40 ms/solve),
-# 767 (3.07 vs 4.24), 959 (2.42 vs 3.53), 1919 (7.17 vs 14.43),
-# 4799 (77.8 vs 127.6) -- so the crossover sits below the smallest
-# production box grid. Sizes under 512 are untested; leave them on FFT.
-MATMUL_DST_MIN = 512
+# DST backends of the spectral solves. 'fft' (XLA's FFT, cuFFT on the
+# GPU) is the model's: on an H100 (700 W) it beat the float32
+# sine-matrix matmul at every production width -- ms per 3-mode
+# solve, FFT vs matmul: 575^2 0.194 vs 0.257, 959^2 0.327 vs 0.653,
+# 1919^2 1.06 vs 2.63, 4799^2 5.83 vs 24.8, and the 4609x577
+# channel's y transform 0.648 vs 0.688 (tools/bench_packed_sweep.py,
+# PERF.md). 'matmul' serves distributed adjoints, whose FFT transpose
+# fails under GSPMD in float64 and loses accuracy in float32 on H100s
+# (adjoint.ocean_sensitivity picks it on a mesh).
+DST_BACKENDS = ("fft", "matmul")
 
-
-def resolve_transform(cfg, nxp: int, nyp: int) -> str:
-    """Pick the box-DST backend from cfg.solver_transform ('auto'
-    selects matmul for large float32 grids -- the regime where XLA's
-    FFT falls behind the MXU; float64 stays FFT: 6-pass emulation
-    applies only to f32, and f64 runs live on CPU)."""
-    if cfg.solver_transform != "auto":
-        return cfg.solver_transform
-    if cfg.dtype != "float32":
-        return "fft"
-    return ("matmul" if min(nxp - 2, nyp - 2) >= MATMUL_DST_MIN
-            else "fft")
-
-
-def resolve_ytransform(cfg, nyp: int) -> str:
-    """Pick the cyclic-channel y-DST backend (the x axis is always
-    RFFT).  Same policy as resolve_transform, keyed on the y extent
-    alone: measured on v5e at the southern-ocean channel (4609x577x3
-    f32) the matmul-y solve runs 10.2 -> 6.4 ms (same ~8e-7 accuracy
-    vs the f64 oracle)."""
-    if cfg.solver_transform != "auto":
-        return cfg.solver_transform
-    if cfg.dtype != "float32":
-        return "fft"
-    return "matmul" if nyp - 2 >= MATMUL_DST_MIN else "fft"
+# The sine-matrix products run at full float32 precision: TF32 tensor
+# cores would put a float32 solve 4e-4 from a float64 one on an H100,
+# against 1e-6 at full precision (PERF.md).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _sine_matrix(n: int, dtype) -> jnp.ndarray:
     """The (n, n) DST-I matrix S[k,j] = 2 sin(pi (j+1)(k+1)/(n+1)),
     generated ON THE FLY from iota inside the jitted program: a
     materialised closure constant would be embedded in the compiled
-    executable (92 MB at NAtl scale) and serialized over remote
-    compile; the sin() generation is a single cheap fusion that XLA
-    hoists out of the scan loop."""
+    executable (92 MB at NAtl scale); the sin() generation is a single
+    cheap fusion that XLA hoists out of the scan loop."""
     j = jax.lax.iota(dtype, n) + 1.0
     return 2.0 * jnp.sin(
         jnp.asarray(np.pi / (n + 1), dtype) * j[:, None] * j[None, :])
 
 
-# Below this half-size, stop even/odd splitting: smaller matmuls lose
-# more MXU efficiency than the halved FLOPs gain. The round-2
-# interleave-based kernels measured best at 1024; the packed
-# scale-folded kernels moved the optimum to 480, and the midpoint
-# sign-epilogue kernels (less glue per level) to 240
-# (tools/bench_packed_sweep.py, v5e f32 ms/solve with the final
-# kernels:  959: 240->2.33 vs 480->2.45;  4799: 240->79.8 vs
-# 480->80.2).  Accuracy IMPROVES with depth (smaller GEMMs accumulate
-# less bf16 error: 8.2e-7 vs 1.2e-6 rel at 959 against the f64
-# oracle for 480 vs 1024).
+# Below this half-size, stop even/odd splitting: smaller GEMMs lose
+# more efficiency than the halved FLOPs gain. On an H100 (700 W) 240
+# and 480 differ by at most 0.21 ms per solve from 575^2 to 4799^2,
+# neither winning everywhere (tools/bench_packed_sweep.py --splits
+# 240,480).
 _MM_SPLIT_MIN = 240
-
-# f32 matmuls on the MXU run as multi-pass bf16: 'highest' = 6 passes
-# (solve rel err ~1e-6 vs an f64 oracle -- f32-FFT-equivalent),
-# 'high' = 3 passes (~35% faster solve, rel err ~6e-5 -- opt-in via
-# ModelConfig.solver_precision for throughput-over-accuracy runs).
-_PREC = {"highest": jax.lax.Precision.HIGHEST,
-         "high": jax.lax.Precision.HIGH}
-
 
 def _mm(x: jnp.ndarray, K: jnp.ndarray, axis: int, prec) -> jnp.ndarray:
     """Contract `axis` of x with the FIRST axis of kernel K, keeping
     the axis order of x. axis=-2 is expressed as a direct dot_general
     (kernel on the left, x minor dim rides as the GEMM N dimension) so
     every operand and result keeps the natural x-minor layout -- a
-    swapaxes formulation makes XLA propagate transposed {2,0,1} tile
-    layouts into the surrounding step (measured: +35 ms/step of
-    relayout copies and slow T(4,128) mask passes at NAtl scale)."""
+    swapaxes formulation makes XLA propagate transposed layouts into
+    the surrounding step (relayout copies)."""
     if axis in (-1, x.ndim - 1):
         return jnp.einsum("...j,jk->...k", x, K, precision=prec)
     assert axis in (-2, x.ndim - 2)
     return jnp.einsum("jk,...jx->...kx", K, x, precision=prec)
 
 
-def _dst1_mm(x: jnp.ndarray, axis: int,
-             prec=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """DST-I along `axis` (-1 or -2) as MXU matmuls, with a radix-2
-    even/odd symmetry split while the half-size stays MXU-friendly.
+def _dst1_mm(x: jnp.ndarray, axis: int, prec=_HIGHEST) -> jnp.ndarray:
+    """DST-I along `axis` (-1 or -2) as matmuls, with a radix-2
+    even/odd symmetry split while the half-size stays large.
 
     With M = N+1, the part of x symmetric under j -> M-j feeds only
     ODD wavenumbers through the (m x m) kernel sin(pi j (2t+1)/2m)
@@ -131,7 +95,7 @@ def _dst1_mm(x: jnp.ndarray, axis: int,
     antisymmetric part feeds EVEN wavenumbers through a half-size
     DST-I -- which recurses. Each level halves the matmul FLOPs; the
     arithmetic is the textbook DST-I radix-2 step, expressed as dense
-    half-kernels for the MXU instead of butterflies.
+    half-kernels (GEMMs) instead of butterflies.
     """
     n = x.shape[axis]
     dt = x.dtype
@@ -160,17 +124,10 @@ def _dst1_mm(x: jnp.ndarray, axis: int,
     return jnp.concatenate([inter, sl(odd, m - 1, m)], axis=axis)
 
 
-def dst1_matmul(x: jnp.ndarray, axis: int = -1,
-                precision: str = "highest") -> jnp.ndarray:
-    """DST-I as dense sine-kernel products on the MXU
-    (precision HIGHEST = 6-pass bf16, float32-accurate).
-
-    Same transform as `dst1`; at large sizes the MXU runs it well
-    past XLA's FFT (measured on v5e at 4799^2x3 f32: full solve
-    109 ms with the radix split vs 127 ms FFT). Used by
-    BoxHelmholtz(transform='matmul'); crossover picked in model.py.
-    """
-    prec = _PREC[precision]
+def dst1_matmul(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
+    """DST-I as dense sine-kernel products. Same transform as `dst1`;
+    the solvers' packed variant is BoxHelmholtz(transform='matmul')."""
+    prec = _HIGHEST
     if axis >= 0:
         axis -= x.ndim
     if axis in (-1, -2):
@@ -184,8 +141,8 @@ def dst1_matmul(x: jnp.ndarray, axis: int = -1,
 #
 # The radix split's natural output is [odd wavenumbers; even packed
 # recursively]; _dst1_mm interleaves it back to wavenumber order, and
-# the inverse pass has to un-interleave -- ~18 ms/step of data
-# formatting + reverse traffic at NAtl scale. Since everything done
+# the inverse pass has to un-interleave -- data formatting and reverse
+# traffic. Since everything done
 # in spectral space (denominator division, Parseval contractions with
 # gx/gy, rank-one constraint corrections) is diagonal or a full
 # contraction, the solver instead keeps spectra PERMUTED in split
@@ -218,16 +175,12 @@ def _odd_kernel2(m: int, dtype) -> jnp.ndarray:
     """(m-1, m) kernel K2[j, t] = 2 sin(pi (j+1) (2t+1) / 2m) for
     j = 1..m-1.  The factor 2 absorbs the textbook radix step's
     4 * K1 * (0.5-weighted symmetric parts): with K2 the packed
-    transforms below need NO standalone scale or halving passes
-    (profiled: the 0.5/2.0/4.0 elementwise passes and full-length
-    flips cost ~8 ms per NAtl f32 solve).
+    transforms below need NO standalone scale or halving passes.
 
     The midpoint row j = m is NOT in the kernel: its entries are
     2 sin(pi (2t+1)/2) = 2 (-1)^t exactly, so the midpoint column's
     contribution is applied as a fused elementwise epilogue
-    (_mid_signs) instead of a full-array concat feeding the GEMM --
-    the ebar assembly copy was ~1.5 ms/step at NAtl scale, and the
-    elementwise f32 path is also exact where the bf16 GEMM rounds."""
+    (_mid_signs) instead of a full-array concat feeding the GEMM."""
     j = jax.lax.iota(dtype, m - 1) + 1.0
     t = jax.lax.iota(dtype, m)
     return 2.0 * jnp.sin(jnp.asarray(np.pi / (2 * m), dtype)
@@ -307,8 +260,7 @@ def _dst1_mm_blocks(x: jnp.ndarray, axis: int, prec) -> list:
     level, base last): jnp.concatenate(blocks, axis) equals
     _dst1_mm_packed(x, axis).  Skipping the inter-level concatenation
     matters on the minor axis, where the odd/even block boundary is
-    not tile-aligned and XLA executes the concat at ~150 GB/s
-    (~4 ms/step of the NAtl solve)."""
+    not tile-aligned."""
     n = x.shape[axis]
     dt = x.dtype
     m = (n + 1) // 2
@@ -349,7 +301,7 @@ def dst1(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
     (FFTPACK `dsint` convention, so dst1(dst1(x)) == 2*(N+1)*x.)
 
     Implemented via an odd extension of length 2(N+1) and a real FFT --
-    XLA lowers this to its batched FFT, which is efficient on TPU.
+    XLA lowers this to its batched FFT (cuFFT on the GPU).
     """
     x = jnp.moveaxis(x, axis, -1)
     n = x.shape[-1]
@@ -360,8 +312,7 @@ def dst1(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
 
 
 def dst1_np(x: np.ndarray, axis: int = -1) -> np.ndarray:
-    """NumPy twin of `dst1` for host-side (init-time) solves -- model
-    initialisation must never compile f64 FFTs for the TPU backend."""
+    """NumPy twin of `dst1` for host-side float64 (init-time) solves."""
     x = np.moveaxis(np.asarray(x, dtype=np.float64), axis, -1)
     n = x.shape[-1]
     z = np.zeros(x.shape[:-1] + (2 * (n + 1),), dtype=np.float64)
@@ -418,13 +369,12 @@ class BoxHelmholtz:
     gy: jnp.ndarray          # (nyp-2,)
     norm: float              # combined inverse-transform normalisation
     denom_inv_np: np.ndarray = None   # float64 host copy (init-time solves)
-    transform: str = "fft"   # 'fft' (odd-extension rfft) | 'matmul' (MXU)
-    mm_precision: str = "highest"     # matmul pass count: highest|high
+    transform: str = "fft"   # 'fft' (odd-extension rfft) | 'matmul'
 
     # The spectral denominators are recomputed on the fly from the O(N)
     # eigenvalue vectors: a (nm, ny, nx) closure constant would be
     # embedded in the compiled program (hundreds of MB at NAtl.1km
-    # scale, which also overflows remote-compile payload limits).
+    # scale).
     # The fields are host NumPy (byte-stable programs, no lowering
     # fetch), so they MUST be wrapped in jnp.asarray before the outer
     # sum -- NumPy would otherwise broadcast eagerly at trace time and
@@ -445,16 +395,14 @@ class BoxHelmholtz:
         under transform='matmul')."""
         f = rhs[..., 1:-1, 1:-1]
         if self.transform == "matmul":
-            prec = _PREC[self.mm_precision]
-            return _dst1_mm_packed(_dst1_mm_packed(f, -1, prec), -2,
-                                   prec)
+            return _dst1_mm_packed(_dst1_mm_packed(f, -1, _HIGHEST), -2,
+                                   _HIGHEST)
         return dst1(dst1(f, axis=-1), axis=-2)
 
     def inverse(self, spec: jnp.ndarray) -> jnp.ndarray:
         if self.transform == "matmul":
-            prec = _PREC[self.mm_precision]
-            sol = _idst1_mm_packed(_idst1_mm_packed(spec, -1, prec),
-                                   -2, prec) * self.norm
+            sol = _idst1_mm_packed(_idst1_mm_packed(spec, -1, _HIGHEST),
+                                   -2, _HIGHEST) * self.norm
         else:
             sol = dst1(dst1(spec, axis=-1), axis=-2) * self.norm
         return jnp.pad(sol, [(0, 0)] * (spec.ndim - 2) + [(1, 1), (1, 1)])
@@ -509,17 +457,15 @@ class BoxHelmholtz:
         """Interior 2-D DST as nested blocks spec[i][j] (x-major);
         concatenating j along -2 then i along -1 reproduces
         forward(rhs)."""
-        prec = _PREC[self.mm_precision]
         f = rhs[..., 1:-1, 1:-1]
-        return [_dst1_mm_blocks(xb, -2, prec)
-                for xb in _dst1_mm_blocks(f, -1, prec)]
+        return [_dst1_mm_blocks(xb, -2, _HIGHEST)
+                for xb in _dst1_mm_blocks(f, -1, _HIGHEST)]
 
     def inverse_blocks(self, spec: list) -> jnp.ndarray:
         """Inverse of forward_blocks (scaled by norm, zero-padded
         boundary)."""
-        prec = _PREC[self.mm_precision]
-        cols = [_idst1_mm_blocks(sb, -2, prec) for sb in spec]
-        sol = _idst1_mm_blocks(cols, -1, prec) * self.norm
+        cols = [_idst1_mm_blocks(sb, -2, _HIGHEST) for sb in spec]
+        sol = _idst1_mm_blocks(cols, -1, _HIGHEST) * self.norm
         nd = sol.ndim
         return jnp.pad(sol, [(0, 0)] * (nd - 2) + [(1, 1), (1, 1)])
 
@@ -549,8 +495,7 @@ class CyclicHelmholtz:
     rdm2: jnp.ndarray        # (nm,)
     norm: float
     denom_inv_np: np.ndarray = None   # float64 host copy (init-time solves)
-    ytransform: str = "fft"  # y-DST backend: 'fft' | 'matmul' (MXU)
-    mm_precision: str = "highest"
+    ytransform: str = "fft"  # y-DST backend: 'fft' | 'matmul'
 
     def _denom(self):
         # jnp.asarray: see BoxHelmholtz._denom (eager-NumPy trap)
@@ -563,12 +508,12 @@ class CyclicHelmholtz:
     # purely internal to solve() -- forward and inverse cancel.
     def _ydst(self, f):
         if self.ytransform == "matmul":
-            return _dst1_mm_packed(f, -2, _PREC[self.mm_precision])
+            return _dst1_mm_packed(f, -2, _HIGHEST)
         return dst1(f, axis=-2)
 
     def _iydst(self, f):
         if self.ytransform == "matmul":
-            return _idst1_mm_packed(f, -2, _PREC[self.mm_precision])
+            return _idst1_mm_packed(f, -2, _HIGHEST)
         return dst1(f, axis=-2)
 
     def solve(self, rhs: jnp.ndarray) -> jnp.ndarray:
@@ -602,13 +547,9 @@ class CyclicHelmholtz:
 
 def make_box_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
                        rdm2: np.ndarray, dtype=jnp.float64,
-                       transform: str = "fft",
-                       mm_precision: str = "highest") -> BoxHelmholtz:
+                       transform: str = "fft") -> BoxHelmholtz:
     """rdm2: (nm,) vector of 1/Rd^2 values (0 for barotropic).
-    transform: 'fft' | 'matmul' (MXU sine-matrix DST; faster than the
-    FFT above ~2000^2 on TPU, see tools/bench_solve.py).
-    mm_precision: 'highest' (6-pass bf16, f32-equivalent accuracy) |
-    'high' (3-pass, ~35% faster, rel err ~6e-5)."""
+    transform: one of DST_BACKENDS."""
     nx, ny = nxp - 1, nyp - 1
     k = np.arange(1, nx)                       # x wavenumbers (DST-I)
     l = np.arange(1, ny)                       # y wavenumbers (DST-I)
@@ -634,15 +575,13 @@ def make_box_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
                         gx=np.asarray(gx, dtype=dtype),
                         gy=np.asarray(gy, dtype=dtype),
                         norm=norm, denom_inv_np=1.0 / denom,
-                        transform=transform, mm_precision=mm_precision)
+                        transform=transform)
 
 
 def make_cyclic_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
                           rdm2: np.ndarray, dtype=jnp.float64,
-                          ytransform: str = "fft",
-                          mm_precision: str = "highest",
-                          ) -> CyclicHelmholtz:
-    """ytransform: 'fft' | 'matmul' (MXU sine-matrix DST along y; the
+                          ytransform: str = "fft") -> CyclicHelmholtz:
+    """ytransform: 'fft' | 'matmul' (sine-matrix DST along y; the
     x axis is always RFFT).  With 'matmul' the device-side y spectrum
     stays in packed split order -- lamy is permuted here to match
     (denom_inv_np stays natural for the host-side f64 init solves)."""
@@ -661,5 +600,4 @@ def make_cyclic_helmholtz(nxp: int, nyp: int, dx: float, dy: float,
                            lamy=np.asarray(lamy, dtype=dtype),
                            rdm2=np.asarray(rdm2, dtype=dtype),
                            norm=norm, denom_inv_np=1.0 / denom,
-                           ytransform=ytransform,
-                           mm_precision=mm_precision)
+                           ytransform=ytransform)

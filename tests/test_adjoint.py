@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from qgcm_tpu.config import ModelConfig, OceanConfig
-from qgcm_tpu.model import build_model
+from qgcm_tpu.model import build_model, with_dst
 from qgcm_tpu.models.ocean import (init_ocean_state,
                                    ocean_forcing_from_mean)
 from qgcm_tpu.models.stepper import make_ocean_only_runner
@@ -137,22 +137,6 @@ def test_unforced_gradient_is_zero_field_effectless():
     assert np.isfinite(a).all() and np.abs(a).max() > 0
 
 
-def test_adjoint_forces_pallas_off():
-    """f32 TPU models auto-enable the fused Pallas kernel, which has
-    no VJP: ocean_sensitivity must rebuild the model with the jnp
-    stencil chain (same fence-style defence as the ensemble runner)
-    so differentiation works regardless of the model's kernel flag.
-    Validated compiled on the real chip (961-wide channel, 240
-    remat'd steps) in round 5; this pins the fence on CPU."""
-    model, st0, mf = _setup(False)
-    model_p = model.__class__(**{**model.__dict__,
-                                 "cfg": model.cfg.replace(use_pallas=True)})
-    sens = ocean_sensitivity(model_p, layer1_energy_proxy(model_p))
-    val, g = sens(st0, mf, 10)
-    assert np.isfinite(float(val))
-    assert np.isfinite(np.asarray(g.forcing[0])).all()
-
-
 def test_coupled_runner_differentiates_with_remat():
     """The coupled runner's remat=True path (per-cycle jax.checkpoint)
     also differentiates: d(final atmos mixed-layer temperature)/
@@ -225,20 +209,19 @@ def test_forcing_inversion_by_gradient_descent():
 
 def test_distributed_adjoint_matches_single_device():
     """Gradients through the SHARDED runner (rows mesh + explicit
-    ppermute halo schedule, matmul-DST solver): XLA transposes the
-    collectives and the distributed gradient equals the single-device
-    one to ~1e-15. The matmul solver is the production TPU path
-    anyway (auto at >=512 interior); the FFT path's rfft transpose
-    trips an upstream XLA dtype verifier bug under GSPMD and the a2a
-    pencil solvers stay forward-only (cotangent varying-axes
-    mismatch) -- both noted in ocean_sensitivity's docstring."""
+    ppermute halo schedule): XLA transposes the collectives and the
+    distributed gradient equals the single-device one to ~1e-13.
+    ocean_sensitivity moves a mesh run to the matmul DST by itself --
+    the FFT path's rfft transpose trips an XLA dtype verifier bug
+    under GSPMD in float64 -- so the single-device reference runs on
+    the matmul too; the a2a pencil solvers stay forward-only
+    (cotangent varying-axes mismatch)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs multi-device CPU mesh")
     from qgcm_tpu.parallel.mesh import make_mesh, shard_tree
 
     cfg = ModelConfig(nxta=24, nyta=24, nxaooc=24, nyaooc=12, ndxr=2,
                       fnot=5.92e-5, beta=2.08e-11, dta=150.0,
-                      solver_transform="matmul",
                       ocean=OceanConfig(nlo=2, dxo=20e3, delek=2.0,
                                         hoc=(800.0, 3200.0),
                                         gpoc=(0.01,),
@@ -252,7 +235,7 @@ def test_distributed_adjoint_matches_single_device():
     obj = layer1_energy_proxy(model)
     n = 30
 
-    _, g1 = ocean_sensitivity(model, obj)(st0, mf, n)
+    _, g1 = ocean_sensitivity(with_dst(model, "matmul"), obj)(st0, mf, n)
 
     mesh = make_mesh(jax.devices()[:4], rows_only=True)
     sens_d = ocean_sensitivity(model, obj, mesh=mesh,
@@ -270,8 +253,8 @@ def test_distributed_adjoint_matches_single_device():
 
 def test_segmented_adjoint_equals_single_program():
     """segment_steps (host-level checkpointing for horizons whose
-    one-program backward exceeds HBM -- measured 740 MB over the v5e
-    at the 30-day production channel): the chained per-segment VJPs
+    one-program backward exceeds device memory): the chained
+    per-segment VJPs
     must reproduce the single-program gradient at machine precision,
     value and all gradient fields."""
     model, st0, mf = _setup(False)

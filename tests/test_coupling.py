@@ -146,8 +146,8 @@ def test_xforc_stress_integrals_consistent(model):
 def test_float32_dtype_purity():
     """A float32 coupled step must not promote any field to float64
     (x64 is globally enabled for CPU parity, so any strong-typed NumPy
-    scalar in the forcing/step pipeline would silently poison the TPU
-    production path)."""
+    scalar in the forcing/step pipeline would silently poison the
+    float32 production path)."""
     m = _model(dtype="float32")
     from qgcm_tpu.models.atmos import make_atmos_step
     from qgcm_tpu.models.ocean import make_ocean_step

@@ -1,6 +1,6 @@
 """Real multi-process jax.distributed test (2 controller processes x 4
 virtual CPU devices each = one 8-device global mesh), exercising
-parallel/launch.distributed_session the way a TPU-pod job would
+parallel/launch.distributed_session the way a multi-host job would
 (replacing the reference's batch job control, src/cntl_q-gcm:8,45).
 
 Asserts cross-process equality of global reductions, agreement with a

@@ -6,6 +6,10 @@ played (SURVEY.md section 4).
 
 If a change legitimately alters the trajectory (e.g. a bug fix), the
 expected values must be updated deliberately in the same commit.
+
+`golden_ocean_only_box()` and `golden_coupled()` return the measured
+numbers, so the same cases can be run on other devices against the
+same constants (chip_smoke.py).
 """
 
 import numpy as np
@@ -23,7 +27,26 @@ from qgcm_tpu.generators import eddy_pressure, double_gyre_windstress
 RTOL = 1e-9
 
 
-def test_golden_ocean_only_box():
+EXPECTED_OCEAN_ONLY_BOX = dict(
+    po_sum=31.416626761421,
+    po_l1=32.5480213744938,
+    po_max=0.962083301276373,
+    qo_l1=0.0038091058169070335,
+    sst_l1=2.135746401204379,
+    dpioc0=-19680485411.11134,
+)
+
+EXPECTED_COUPLED = dict(
+    pa_l1=4494126.575996573,
+    pa_max=10034.029753613597,
+    ast_l1=3013.375749852249,
+    hmixa_sum=287999.9999953847,
+    po_l1=8.576337767308004,
+    sst_l1=7884.8790379866205,
+)
+
+
+def golden_ocean_only_box():
     cfg = ModelConfig(nxta=24, nyta=24, nxaooc=16, nyaooc=8, ndxr=2,
                       fnot=9.37456e-5, beta=1.7536e-11, dta=200.0,
                       nstr=3,
@@ -43,7 +66,7 @@ def test_golden_ocean_only_box():
     po = np.asarray(st.po)
     qo = np.asarray(st.qo)
     sst = np.asarray(st.sst)
-    got = dict(
+    return dict(
         po_sum=float(po.sum()),
         po_l1=float(np.abs(po).sum()),
         po_max=float(po.max()),
@@ -51,19 +74,9 @@ def test_golden_ocean_only_box():
         sst_l1=float(np.abs(sst).sum()),
         dpioc0=float(np.asarray(st.dpioc)[0]),
     )
-    expected = dict(
-        po_sum=31.416626761421,
-        po_l1=32.5480213744938,
-        po_max=0.962083301276373,
-        qo_l1=0.0038091058169070335,
-        sst_l1=2.135746401204379,
-        dpioc0=-19680485411.11134,
-    )
-    for k, v in expected.items():
-        assert got[k] == pytest.approx(v, rel=RTOL), (k, got)
 
 
-def test_golden_coupled():
+def golden_coupled():
     cfg = double_gyre_coupled(nxta=24, nyta=12, nxaooc=8, nyaooc=8,
                               ndxr=4, dta=180.0,
                               ocean=OceanConfig(dxo=20.0e3))
@@ -71,7 +84,7 @@ def test_golden_coupled():
     oc = init_ocean_state(model, init="rbal")
     at = init_atmos_state(model, init="rbal")
     oc, at = make_coupled_runner(model)(oc, at, 30)
-    got = dict(
+    return dict(
         pa_l1=float(np.abs(np.asarray(at.pa)).sum()),
         pa_max=float(np.asarray(at.pa).max()),
         ast_l1=float(np.abs(np.asarray(at.ast)).sum()),
@@ -79,13 +92,15 @@ def test_golden_coupled():
         po_l1=float(np.abs(np.asarray(oc.po)).sum()),
         sst_l1=float(np.abs(np.asarray(oc.sst)).sum()),
     )
-    expected = dict(
-        pa_l1=4494126.575996573,
-        pa_max=10034.029753613597,
-        ast_l1=3013.375749852249,
-        hmixa_sum=287999.9999953847,
-        po_l1=8.576337767308004,
-        sst_l1=7884.8790379866205,
-    )
-    for k, v in expected.items():
+
+
+def test_golden_ocean_only_box():
+    got = golden_ocean_only_box()
+    for k, v in EXPECTED_OCEAN_ONLY_BOX.items():
+        assert got[k] == pytest.approx(v, rel=RTOL), (k, got)
+
+
+def test_golden_coupled():
+    got = golden_coupled()
+    for k, v in EXPECTED_COUPLED.items():
         assert got[k] == pytest.approx(v, rel=RTOL), (k, got)

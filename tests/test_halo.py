@@ -68,34 +68,6 @@ def test_kernel_bit_exact(cyclic, variant):
 
 
 @pytest.mark.parametrize("cyclic", [False, True])
-@pytest.mark.parametrize("variant", ["deep", "overlap"])
-def test_pallas_in_shard_map_bit_exact(cyclic, variant):
-    """The fused Pallas kernel running PER SHARD inside the shard_map
-    halo path must reproduce the FULL-FIELD kernel bit-exactly (the
-    shard_map wrapper adds nothing numerically) -- this is the path
-    that keeps the kernel's measured single-chip win on mesh runs (a
-    pallas_call inside shard_map is manual SPMD; only bare GSPMD
-    cannot partition one).  Against the XLA chain the comparison is
-    to 1e-12: the CPU interpreter reassociates the cyclic wrap columns
-    at the last ulp (on the TPU backend the kernel itself is
-    bit-exact vs the chain, BENCHMARKS.md)."""
-    from qgcm_tpu.models.ocean import _qgostep_pallas
-    model, st, f = _setup(cyclic)
-    _, _, entoc, *_ = _oml(model, st, f)
-    q_full, _, cyc_ref = _qgostep_pallas(model, st, f, entoc)
-    q, _, cyc = _qgostep_halo(model, st, f, entoc, _mesh(4), variant,
-                              use_pallas=True)
-    assert float(jnp.abs(q_full - q).max()) == 0.0
-    q_ref, _, _ = _qgostep(model, st, f, entoc)
-    scale = float(jnp.abs(q_ref).max())
-    assert float(jnp.abs(q_ref - q).max()) < 1e-12 * scale
-    if cyclic:
-        for k in cyc_ref:
-            np.testing.assert_array_equal(np.asarray(cyc_ref[k]),
-                                          np.asarray(cyc[k]), err_msg=k)
-
-
-@pytest.mark.parametrize("cyclic", [False, True])
 def test_runner_matches_gspmd(cyclic):
     """20 steps through the full runner: the halo path must agree with
     the GSPMD path on the SAME mesh to reduction-order tolerance (the
@@ -168,25 +140,6 @@ def test_kernel_2d_cyclic_refused():
     _, _, entoc, *_ = _oml(model, st, f)
     with pytest.raises(ValueError, match="rows"):
         _qgostep_halo(model, st, f, entoc, _mesh2((2, 4)), "deep")
-
-
-@pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
-@pytest.mark.parametrize("variant", ["deep", "overlap"])
-def test_pallas_in_shard_map_bit_exact_2d(shape, variant):
-    """The fused Pallas kernel running per shard on 2-D ghost-RING
-    windows (x_ext mode: real exchanged ghost columns, wall masks on
-    global (row, col)) must reproduce the full-field kernel
-    bit-exactly -- box configs have no cyclic-wrap reassociation, so
-    the jnp chain comparison is bit-exact too."""
-    from qgcm_tpu.models.ocean import _qgostep_pallas
-    model, st, f = _setup(False)
-    _, _, entoc, *_ = _oml(model, st, f)
-    q_full, _, _ = _qgostep_pallas(model, st, f, entoc)
-    q, _, _ = _qgostep_halo(model, st, f, entoc, _mesh2(shape),
-                            variant, use_pallas=True)
-    assert float(jnp.abs(q_full - q).max()) == 0.0
-    q_ref, _, _ = _qgostep(model, st, f, entoc)
-    assert float(jnp.abs(q_ref - q).max()) == 0.0
 
 
 def test_runner_matches_gspmd_2d():

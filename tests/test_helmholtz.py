@@ -99,12 +99,11 @@ def test_spectral_matches_thomas():
 
 
 def test_matmul_transform_matches_fft():
-    """The MXU sine-matrix DST backend (transform='matmul') must solve
+    """The sine-matrix DST backend (transform='matmul') must solve
     the same problem as the FFT backend: identical solution to
     roundoff, and the same residual exactness. On CPU f64 the two are
-    equal to ~1e-12; on TPU f32 the matmul runs at precision HIGHEST
-    (6-pass bf16) with f32-equivalent accuracy (tools/bench_solve.py
-    measured 4.8e-7 vs the FFT's 5.5e-7 against an f64 oracle)."""
+    equal to ~1e-12 (chip_smoke.py phase c holds both float32 backends
+    to 2e-6 of a float64 solve on the GPU)."""
     rng = np.random.default_rng(7)
     nxp, nyp = 37, 29
     dx, dy = 5e3, 5e3
@@ -191,28 +190,49 @@ def test_matmul_packed_solver(monkeypatch):
                                    rtol=1e-9, atol=1e-20)
 
 
-def test_resolve_transform_auto():
-    """'auto' picks matmul only for large float32 grids."""
-    from dataclasses import dataclass
-    from qgcm_tpu.solver.helmholtz import (resolve_transform,
-                                           MATMUL_DST_MIN)
+@pytest.mark.parametrize("dtype,dst", [
+    ("float64", "fft"),
+    ("float32", "fft"),
+    ("float64", "matmul"),
+    ("float32", "matmul"),
+])
+def test_dst_backend_wires_solvers(dtype, dst):
+    """build_model puts every PV inversion on the FFT (the GPU sweep
+    found no width where the matmul wins); with_dst moves all three
+    solvers of a coupled model -- box ocean, channel ocean,
+    atmosphere -- to the named backend."""
+    from qgcm_tpu.config import double_gyre_coupled
+    from qgcm_tpu.model import build_model, with_dst
 
-    @dataclass
-    class C:
-        solver_transform: str = "auto"
-        dtype: str = "float32"
+    box = double_gyre_coupled(nxta=24, nyta=12, nxaooc=8, nyaooc=8,
+                              ndxr=4, dtype=dtype)
+    for cfg in (box, box.replace(cyclic_ocean=True, nxaooc=24)):
+        model = build_model(cfg)
+        helms = (model.inv_oc.helm, model.inv_at.helm)
+        assert [getattr(h, "transform", None) or h.ytransform
+                for h in helms] == ["fft", "fft"]
+        moved = with_dst(model, dst)
+        assert [getattr(h, "transform", None) or h.ytransform
+                for h in (moved.inv_oc.helm, moved.inv_at.helm)] \
+            == [dst, dst]
+        assert moved.inv_oc.helm.lamy.dtype == np.dtype(dtype)
 
-    big = MATMUL_DST_MIN + 2
-    assert resolve_transform(C(), big, big) == "matmul"
-    assert resolve_transform(C(), big, 500) == "fft"
-    assert resolve_transform(C(dtype="float64"), big, big) == "fft"
-    assert resolve_transform(C(solver_transform="fft"), big, big) == "fft"
-    assert resolve_transform(C(solver_transform="matmul"), 40, 40) \
-        == "matmul"
+
+def test_with_dst_rejects_unknown_backend():
+    """An unknown DST backend name fails at once, and asking for the
+    backend the model already has returns the model itself."""
+    from qgcm_tpu.config import double_gyre_coupled
+    from qgcm_tpu.model import build_model, with_dst
+
+    model = build_model(double_gyre_coupled(nxta=24, nyta=12, nxaooc=8,
+                                            nyaooc=8, ndxr=4))
+    assert with_dst(model, "fft") is model
+    with pytest.raises(ValueError, match="dst must be one of"):
+        with_dst(model, "high")
 
 
 def test_cyclic_matmul_y_matches_fft(monkeypatch):
-    """ytransform='matmul' (MXU sine-kernel DST along y, packed split
+    """ytransform='matmul' (sine-kernel DST along y, packed split
     order with permuted lamy) must reproduce the FFT-y channel solve
     to roundoff through multiple recursion levels."""
     import qgcm_tpu.solver.helmholtz as H
@@ -230,26 +250,6 @@ def test_cyclic_matmul_y_matches_fft(monkeypatch):
         a = np.asarray(fft.solve(jnp.asarray(rhs)))
         b = np.asarray(mm.solve(jnp.asarray(rhs)))
         assert np.abs(a - b).max() < 1e-11 * np.abs(a).max(), (nxp, nyp)
-
-
-def test_resolve_ytransform_auto():
-    """'auto' picks the matmul y-DST only for large float32 channels."""
-    from dataclasses import dataclass
-    from qgcm_tpu.solver.helmholtz import (resolve_ytransform,
-                                           MATMUL_DST_MIN)
-
-    @dataclass
-    class C:
-        solver_transform: str = "auto"
-        dtype: str = "float32"
-
-    big = MATMUL_DST_MIN + 2
-    assert resolve_ytransform(C(), big) == "matmul"
-    assert resolve_ytransform(C(), 100) == "fft"
-    assert resolve_ytransform(C(dtype="float64"), big) == "fft"
-    assert resolve_ytransform(C(solver_transform="fft"), big) == "fft"
-    assert resolve_ytransform(C(solver_transform="matmul"), 40) \
-        == "matmul"
 
 
 def test_block_spectra_match_packed(monkeypatch):

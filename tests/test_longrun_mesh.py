@@ -57,7 +57,7 @@ def _monit(d, names):
 def test_longrun_mesh_with_restart_resume(tmp_path, mesh_shape):
     """mesh_shape="rows": the production rows-only (4,1) layout.
     "box2d": the 2-D (2,2) box decomposition (corner-ghost halo
-    schedule + per-shard x_ext Pallas mode, parallel/halo.py:300-420)
+    schedule, parallel/halo.py _qgstep_halo_2d)
     -- the newest decomposition gets the same slow-drift coverage
     (constraint algebra over 2-D shards, cadence/resume seams) as the
     rows path, not just kernel bit-exactness (test_halo)."""

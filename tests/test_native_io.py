@@ -1,6 +1,8 @@
 """Native (C++) netCDF writer: files must be readable by scipy's
 independent netCDF3 implementation, byte-compatible semantics."""
 
+import os
+
 import numpy as np
 import pytest
 from scipy.io import netcdf_file
@@ -99,3 +101,22 @@ def test_async_matches_sync(tmp_path):
     a = open(paths[0], "rb").read()
     b = open(paths[1], "rb").read()
     assert a == b
+
+
+@pytest.mark.parametrize("lib_exists,src_newer,stale", [
+    (False, False, True),
+    (True, True, True),
+    (True, False, False),
+], ids=["missing", "older_than_source", "fresh"])
+def test_native_lib_rebuilt_when_stale(tmp_path, lib_exists, src_newer,
+                                       stale):
+    """The shared library is rebuilt when missing or older than
+    ncwriter.cc, so an edited source never runs from an old build."""
+    from qgcm_tpu.io.native import _stale
+    src, lib = tmp_path / "ncwriter.cc", tmp_path / "lib.so"
+    src.write_text("// source")
+    if lib_exists:
+        lib.write_bytes(b"")
+        t = os.path.getmtime(src)
+        os.utime(lib, (t + (-10 if src_newer else 10),) * 2)
+    assert _stale(str(lib), str(src)) is stale

@@ -1,12 +1,10 @@
 """Compiled programs must carry no grid-sized constants.
 
 The solver/model dataclasses store their static arrays as host NumPy
-(byte-stable programs, no lowering fetch -- see the round-1 startup
-work). The trap: any arithmetic BETWEEN two such fields inside a
+(byte-stable programs, no lowering fetch). The trap: any arithmetic BETWEEN two such fields inside a
 traced function runs eagerly in NumPy and bakes the full-size result
 into the program as a constant. At NAtl.1km scale that is hundreds of
-MB, which overflows the remote-compile payload (HTTP 413) and bloats
-every executable. These tests trace the production entry points and
+MB in every executable. These tests trace the production entry points and
 assert every closure constant stays O(N) -- they catch the exact
 regression that reappeared when bca0698 switched fields to NumPy.
 """

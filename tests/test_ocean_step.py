@@ -172,19 +172,19 @@ def test_anticyclone_beta_drifts_southwest():
 
 @pytest.mark.parametrize("case", ["box", "cyclic"])
 def test_matmul_solver_trajectory_matches_fft(case, monkeypatch):
-    """Model-level wiring check for solver_transform='matmul': a short
+    """Model-level wiring check for the matmul DST (with_dst): a short
     run must reproduce the FFT-solver trajectory to roundoff, in both
-    domains, with the radix split forced active (the production TPU
-    path; solver-level equality alone would miss a permuted-vector /
-    constraint-algebra mismatch in _ocinvq)."""
+    domains, with the radix split forced active (solver-level
+    equality alone would miss a permuted-vector / constraint-algebra
+    mismatch in _ocinvq)."""
     import qgcm_tpu.solver.helmholtz as H
+    from qgcm_tpu.model import with_dst
     monkeypatch.setattr(H, "_MM_SPLIT_MIN", 4)
     mk = small_box_cfg if case == "box" else small_cyclic_cfg
     states = {}
     for tr in ("fft", "matmul"):
-        cfg = mk(solver_transform=tr)
-        model, state, forcing = _setup(cfg)
-        run = make_ocean_only_runner(model)
+        model, state, forcing = _setup(mk())
+        run = make_ocean_only_runner(with_dst(model, tr))
         states[tr] = run(state, forcing, 24)
     a, b = states["fft"], states["matmul"]
     for name in ("po", "qo", "sst"):

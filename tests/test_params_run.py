@@ -110,11 +110,9 @@ def test_matlab_dump_complete_manifest(tmp_path):
 
 
 def test_driver_mesh_default_halo_variant(tmp_path):
-    """Mesh-run default decided by measurement (BENCHMARKS.md): the
-    Driver picks the 'overlap' shard_map halo schedule on any mesh
-    (51 vs 81 collectives/step vs GSPMD auto on rows meshes, and it
-    keeps the fused Pallas kernel; x>1 box meshes take the 2-D
-    decomposition). CYCLIC channels are rows-only by design: x>1
+    """Mesh-run default: the Driver picks the 'overlap' shard_map halo
+    schedule on any mesh (fewer collectives/step than GSPMD auto,
+    test_halo; x>1 box meshes take the 2-D decomposition). CYCLIC channels are rows-only by design: x>1
     falls back to GSPMD with a LOUD warning. None forces GSPMD."""
     import jax
     import numpy as np
@@ -139,8 +137,8 @@ def test_driver_mesh_default_halo_variant(tmp_path):
     d = Driver(model, p, str(tmp_path / "a"), mean_forcing=None,
                verbose=False, mesh=rows)
     assert d.halo_variant == "overlap"
-    # CYCLIC + x>1 loses the explicit schedule + Pallas kernel: the
-    # fallback must be LOUD, steering users to rows-only meshes
+    # CYCLIC + x>1 loses the explicit schedule: the fallback must be
+    # LOUD, steering users to rows-only meshes
     with pytest.warns(UserWarning, match="rows only"):
         d2 = Driver(model, p, str(tmp_path / "b"), mean_forcing=None,
                     verbose=False, mesh=two_d)
@@ -565,7 +563,7 @@ def test_no_cadence_runs_one_big_chunk(tmp_path):
     """With every diagnostic/I-O cadence disabled, nothing forces a
     host wake-up, so the chunk must be the whole run (capped) -- the
     old gcd fallback of chunk=nstr dispatched ONE coupling cycle per
-    host round-trip (~30 ms each on a remote TPU backend)."""
+    host round-trip."""
     from qgcm_tpu.config import ModelConfig, OceanConfig
     from qgcm_tpu.run import Driver
     from qgcm_tpu.model import build_model

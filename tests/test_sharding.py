@@ -97,8 +97,8 @@ def test_coupled_sharding_equivalence(tau_udiff, rows):
 
 
 def test_hybrid_mesh_groups_hosts_on_y():
-    """make_hybrid_mesh puts processes on 'y' (DCN) and local devices
-    on 'x' (ICI) so the spectral a2a('x') stage stays intra-host."""
+    """make_hybrid_mesh puts processes on 'y' and local devices on
+    'x' so the spectral a2a('x') stage stays intra-host."""
     from types import SimpleNamespace
     from qgcm_tpu.parallel.mesh import make_hybrid_mesh, \
         _group_by_process

@@ -1,6 +1,6 @@
 """Explicit all_to_all sharded spectral solves (parallel/spectral.py).
 
-The TPU-native analogue of the reference's OpenMP-parallel
+The analogue of the reference's OpenMP-parallel
 FFT-x/Thomas-y Helmholtz phases (src/ocisubs.F:460-494,565-605):
 pencil transposes make each transform axis device-local, moving
 O(N^2/P) bytes instead of GSPMD's full-grid all-gathers.  Pinned here:
@@ -70,9 +70,9 @@ def test_cyclic_solve_matches_single_device(shape):
 
 @pytest.mark.parametrize("shape", [(4, 2), (1, 8)])
 def test_box_solve_matmul_transform_sharded(shape):
-    """The MXU matmul (packed split-order) transform also rides the
-    pencil pipeline -- the production path for large f32 TPU grids.
-    Forced here at small size on the CPU mesh: the permuted
+    """The matmul (packed split-order) transform also rides the
+    pencil pipeline (distributed float64 adjoints need it). Forced
+    here at small size on the CPU mesh: the permuted
     eigenvalue/weight vectors must stay consistent with the packed
     spectra across the transposes."""
     rng = np.random.default_rng(4)

@@ -1,12 +1,11 @@
-"""Adjoint cost at production scale on the v5e (round 5).
+"""Adjoint cost at production scale on one GPU.
 
 Measures forward ms/step vs value_and_grad ms/step (remat=True, the
 per-pair jax.checkpoint path) for the southern-ocean channel, f32.
 The classic expectation for checkpointed reverse mode is ~3x the
-primal (forward + recompute + backward); records the measured ratio
-in BENCHMARKS.md ("adjoint cost").
+primal (forward + recompute + backward); prints the measured ratio.
 
-Run serially with nothing else on the chip:
+Run with nothing else on the card:
     python tools/bench_adjoint.py [--steps N]
 """
 
@@ -20,19 +19,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-cache = os.path.expanduser("~/.cache/qgcm_tpu/xla")
-os.makedirs(cache, exist_ok=True)
-if jax.config.jax_compilation_cache_dir is None:
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from qgcm_tpu.backend import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
 
 def sync(tree):
-    jax.block_until_ready(tree)
-    leaf = jax.tree_util.tree_leaves(tree)[0]
-    return float(jnp.ravel(leaf)[0])
+    return jax.block_until_ready(tree)
 
 
 def timed(once, reps=3):

@@ -7,9 +7,8 @@ speedup = m * T_single / T_ensemble. Small grids underfill the chip,
 so batching should approach the m-fold ideal there and fall toward
 1x as a single member saturates the chip.
 
-Run on the TPU (same methodology as bench.py: f32, scan chunks,
-steady state after a warmup re-invocation, min of reps, value-fetch
-sync).
+Run on the GPU (same methodology as bench.py: f32, scan chunks,
+steady state after a warmup re-invocation, min of reps).
 """
 
 import os
@@ -21,10 +20,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-cache = os.path.expanduser("~/.cache/qgcm_tpu/xla")
-os.makedirs(cache, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from qgcm_tpu.backend import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 REPS = 3
@@ -32,10 +30,7 @@ MEMBERS = 8
 
 
 def sync(tree):
-    jax.block_until_ready(tree)
-    import jax.numpy as jnp
-    leaf = jax.tree.leaves(tree)[0]
-    return float(jnp.ravel(leaf)[0])
+    return jax.block_until_ready(tree)
 
 
 def bench(fn, *args):
@@ -59,7 +54,8 @@ def main():
                                           make_ensemble_runner)
     from qgcm_tpu.generators import eddy_pressure, double_gyre_windstress
 
-    dtype = "float32" if jax.devices()[0].platform == "tpu" else "float64"
+    from qgcm_tpu.backend import default_dtype
+    dtype = default_dtype()
     print(f"backend {jax.default_backend()}  dtype {dtype}  "
           f"members {MEMBERS}")
     print(f"{'ocean':>10} {'steps':>6} {'T1 ms/st':>9} "

@@ -1,5 +1,5 @@
-"""Ensemble x spatial-mesh composability: close the design fork with
-NUMBERS (round-5 verdict item 4).
+"""Ensemble x spatial-mesh composability: decide the design fork with
+numbers.
 
 models/ensemble.py shards MEMBERS over the mesh and keeps each member
 on one chip (zero-collective program). The alternative -- composing a
@@ -7,16 +7,15 @@ member axis with rows-sharded members (nested shard_map / flattened
 ('member','y') mesh) -- is only worth building if a member either
 (a) does NOT fit one chip, or (b) batches so badly on one chip that
 spatial sharding per member would beat member parallelism. This tool
-measures both on the real v5e:
+measures both on one card:
 
   1. Southern-ocean channel (4609x577x3 f32, the production channel):
      per-member step time at vmap widths m=1,2,4 + HBM in use.
   2. NAtl.1km (4801^2x3 f32, the biggest inventory config):
      single-member step time + HBM; then m=2 vmap (fit or OOM).
 
-Run serially with nothing else on the chip (libtpu lockfile):
+Run with nothing else on the card:
     python tools/bench_ensemble_mesh.py
-Results recorded in BENCHMARKS.md ("ensemble x mesh composability").
 """
 
 import os
@@ -28,20 +27,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-cache = os.path.expanduser("~/.cache/qgcm_tpu/xla")
-os.makedirs(cache, exist_ok=True)
-if jax.config.jax_compilation_cache_dir is None:
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from qgcm_tpu.backend import enable_compile_cache  # noqa: E402
 
-import jax.numpy as jnp  # noqa: E402
+enable_compile_cache()
+
 import numpy as np  # noqa: E402
 
 
 def sync(tree):
-    jax.block_until_ready(tree)
-    leaf = jax.tree_util.tree_leaves(tree)[0]
-    return float(jnp.ravel(leaf)[0])
+    return jax.block_until_ready(tree)
 
 
 def hbm_gb():

@@ -1,11 +1,13 @@
-"""Re-measure the FFT-vs-matmul crossover and the radix-split depth
-with the PRODUCTION packed scale-folded kernels (helmholtz.BoxHelmholtz
-transform='matmul'), which are faster than the plain sine-matrix
-variant the original tools/bench_solve.py --sweep used to pick
-MATMUL_DST_MIN=1200 and _MM_SPLIT_MIN=1024.
+"""Time the float32 Helmholtz solve with each DST backend -- XLA's FFT
+and the packed radix-split sine-matrix matmul (helmholtz.BoxHelmholtz
+transform='matmul') -- at the production interior widths, plus the
+cyclic channel's y transform. The model's FFT default rests on this
+sweep (solver/helmholtz.py, PERF.md).
 
-Run: python tools/bench_packed_sweep.py [--sizes 959,1439,1919]
-     [--splits 256,512,1024] [--reps 5] [--inner 4]
+Run on the GPU:
+    python tools/bench_packed_sweep.py [--sizes 575,959,1919,4799]
+        [--splits 240] [--channel 4609x577] [--reps 5] [--inner 4]
+Prints one line per grid: ms per 3-mode solve for each backend.
 """
 
 import argparse
@@ -21,14 +23,11 @@ import numpy as np
 from jax import lax
 
 NM = 3
-
-
-def sync(x):
-    jax.block_until_ready(x)
-    return float(jnp.ravel(x)[0])
+RDM2 = np.array([0.0, 6.25e-10, 2.5e-9])
 
 
 def timed(solver, x, reps, inner):
+    """Median ms per solve over `reps` jitted scans of `inner` solves."""
     @jax.jit
     def loop(x):
         def body(c, _):
@@ -36,54 +35,68 @@ def timed(solver, x, reps, inner):
         out, _ = lax.scan(body, x, None, length=inner)
         return out
 
-    with jax.enable_x64(False):
-        out = loop(x)
-        sync(out)
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            sync(loop(x))
-            ts.append((time.perf_counter() - t0) / inner)
-    return float(np.median(ts))
+    jax.block_until_ready(loop(x))
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(loop(x))
+        ts.append((time.perf_counter() - t0) / inner)
+    return 1e3 * float(np.median(ts))
 
 
-def main():
+def box_row(n, splits, reps, inner):
+    from qgcm_tpu.solver import helmholtz as hh
+    nxp = n + 2
+    x = jax.random.normal(jax.random.PRNGKey(0), (NM, nxp, nxp),
+                          jnp.float32)
+    fft = hh.make_box_helmholtz(nxp, nxp, 5e3, 5e3, RDM2,
+                                dtype=jnp.float32, transform="fft")
+    row = [f"box n={n:5d}", f"fft {timed(fft, x, reps, inner):8.3f}"]
+    # restore the module global afterwards: a solver built later in
+    # this process must see the split depth its _split_perm assumed
+    orig_split = hh._MM_SPLIT_MIN
+    try:
+        for sm in splits:
+            hh._MM_SPLIT_MIN = sm
+            mm = hh.make_box_helmholtz(nxp, nxp, 5e3, 5e3, RDM2,
+                                       dtype=jnp.float32,
+                                       transform="matmul")
+            row.append(f"matmul[split {sm}] "
+                       f"{timed(mm, x, reps, inner):8.3f}")
+    finally:
+        hh._MM_SPLIT_MIN = orig_split
+    return "   ".join(row)
+
+
+def channel_row(nxp, nyp, reps, inner):
+    from qgcm_tpu.solver import helmholtz as hh
+    x = jax.random.normal(jax.random.PRNGKey(0), (NM, nyp, nxp),
+                          jnp.float32)
+    row = [f"channel {nxp}x{nyp}"]
+    for yt in ("fft", "matmul"):
+        s = hh.make_cyclic_helmholtz(nxp, nyp, 5e3, 5e3, RDM2,
+                                     dtype=jnp.float32, ytransform=yt)
+        row.append(f"y-{yt} {timed(s, x, reps, inner):8.3f}")
+    return "   ".join(row)
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sizes", default="959,1439,1919")
-    ap.add_argument("--splits", default="256,512,1024")
+    ap.add_argument("--sizes", default="575,959,1919,4799")
+    ap.add_argument("--splits", default="240")
+    ap.add_argument("--channel", default="4609x577")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--inner", type=int, default=4)
-    args = ap.parse_args()
-
-    from qgcm_tpu.solver import helmholtz as hh
-
-    rdm2 = np.array([0.0, 2.4e-10, 1.1e-9])
-    sizes = [int(s) for s in args.sizes.split(",")]
-    splits = [int(s) for s in args.splits.split(",")]
-
-    for n in sizes:                      # n = interior points per axis
-        nxp = n + 2
-        rng = np.random.default_rng(0)
-        x = jnp.asarray(rng.standard_normal((NM, nxp, nxp)), jnp.float32)
-        row = [f"n={n:5d}"]
-        fft_solver = hh.make_box_helmholtz(
-            nxp, nxp, 5e3, 5e3, rdm2, dtype=jnp.float32, transform="fft")
-        dt = timed(fft_solver, x, args.reps, args.inner)
-        row.append(f"fft {dt*1e3:7.2f}")
-        # restore the module global afterwards: a solver built later in
-        # this process must see the split depth its _split_perm assumed
-        orig_split = hh._MM_SPLIT_MIN
-        try:
-            for sm in splits:
-                hh._MM_SPLIT_MIN = sm
-                solver = hh.make_box_helmholtz(
-                    nxp, nxp, 5e3, 5e3, rdm2, dtype=jnp.float32,
-                    transform="matmul")
-                dt = timed(solver, x, args.reps, args.inner)
-                row.append(f"mm[{sm}] {dt*1e3:7.2f}")
-        finally:
-            hh._MM_SPLIT_MIN = orig_split
-        print("   ".join(row), flush=True)
+    args = ap.parse_args(argv)
+    d = jax.devices()[0]
+    print(f"{d.platform} {d.device_kind}: ms per {NM}-mode f32 solve "
+          f"(median of {args.reps} x {args.inner})", flush=True)
+    for n in (int(s) for s in args.sizes.split(",") if s):
+        print(box_row(n, [int(s) for s in args.splits.split(",")],
+                      args.reps, args.inner), flush=True)
+    if args.channel:
+        nxp, nyp = (int(v) for v in args.channel.split("x"))
+        print(channel_row(nxp, nyp, args.reps, args.inner), flush=True)
 
 
 if __name__ == "__main__":

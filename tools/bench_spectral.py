@@ -1,16 +1,10 @@
-"""Distributed-spectral-solve measurement harness (BENCHMARKS.md
-'all_to_all pencil transposes' section).
-
-Produces, without TPU-pod hardware:
-  1. CPU-mesh (8 virtual devices) collective counts + bytes of the
-     compiled Helmholtz solve: GSPMD auto-sharding vs the explicit
-     all_to_all pencil path (parallel/spectral.py), box and cyclic.
-  2. Loop-body collective census of the full ocean-only runner for
-     both variants (the per-step communication the mesh actually pays).
-  3. The REAL TPU answer via deviceless AOT compilation for a v5e:2x4
-     topology: verifies the pencil transposes lower to async
-     all-to-all(-start/-done) pairs on TPU at NAtl-like f32 scale with
-     the MXU matmul DST, and totals the per-solve ICI bytes.
+"""Distributed-spectral-solve census on a CPU mesh of 8 virtual
+devices:
+  1. collective counts + bytes of the compiled Helmholtz solve: GSPMD
+     auto-sharding vs the explicit all_to_all pencil path
+     (parallel/spectral.py), box and cyclic;
+  2. loop-body collective census of the full ocean-only runner for
+     both variants (the per-step communication the mesh pays).
 
 Run: python tools/bench_spectral.py [--grid N]
 """
@@ -34,7 +28,7 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
+from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 from qgcm_tpu.config import ModelConfig, OceanConfig  # noqa: E402
 from qgcm_tpu.model import build_model  # noqa: E402
@@ -48,8 +42,6 @@ from qgcm_tpu.parallel.spectral import (ShardedBoxHelmholtz,  # noqa: E402
 from qgcm_tpu.parallel.inspect import collective_stats  # noqa: E402
 from qgcm_tpu.solver.helmholtz import (make_box_helmholtz,  # noqa: E402
                                        make_cyclic_helmholtz)
-
-ICI_BW = 4.5e10   # v5e per-link bytes/s, one direction
 
 
 def solve_traffic(nxp, nyp):
@@ -111,57 +103,16 @@ def loop_body_census(grid):
               f"scan-body collectives: {counts}")
 
 
-def tpu_aot(nxp):
-    print(f"\n-- TPU v5e:2x4 AOT: a2a box solve at {nxp}^2 x 3 f32, "
-          "MXU matmul DST --")
-    try:
-        from jax.experimental import topologies
-        topo = topologies.get_topology_desc("v5e:2x4", "tpu")
-        tmesh = Mesh(np.array(topo.devices).reshape(4, 2), ("y", "x"))
-        rdm2 = np.array([0.0, 5.9e-10, 2.3e-9], dtype=np.float32)
-        base = make_box_helmholtz(nxp, nxp, 1e3, 1e3, rdm2,
-                                  dtype=jnp.float32,
-                                  transform="matmul")
-        sh = ShardedBoxHelmholtz(base, tmesh)
-        sd = jax.ShapeDtypeStruct((3, nxp, nxp), jnp.float32)
-        shd = NamedSharding(tmesh, P(None, "y", "x"))
-
-        def fn(r):
-            r = jax.lax.with_sharding_constraint(r, shd)
-            return jax.lax.with_sharding_constraint(sh.solve(r), shd)
-
-        with jax.enable_x64(False):
-            compiled = jax.jit(fn).lower(sd).compile()
-        txt = compiled.as_text()
-        starts = len(re.findall(r" all-to-all-start", txt))
-        dones = len(re.findall(r" all-to-all-done", txt))
-        sync = len(re.findall(r"= \(?(?:f|b)[a-z0-9]+\[[0-9,]*\]"
-                              r"[^a-z]*all-to-all\(", txt))
-        ag = len(re.findall(r" all-gather", txt))
-        from qgcm_tpu.parallel.inspect import _shape_bytes
-        nbytes = sum(_shape_bytes(l) for l in txt.splitlines()
-                     if re.search(r" all-to-all(-start)?\(", l))
-        print(f"  all-to-all ops: async start/done={starts}/{dones} "
-              f"sync={sync}  all-gathers={ag}")
-        print(f"  per-solve a2a payload (per device): "
-              f"{nbytes/1e6:.2f} MB -> ICI ~{nbytes/ICI_BW*1e6:.0f} us "
-              f"@ {ICI_BW/1e9:.0f} GB/s/link")
-    except Exception as e:
-        print("  AOT TPU compile unavailable:", e)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--grid", type=int, default=48)
     ap.add_argument("--solve-size", type=int, default=961)
-    ap.add_argument("--aot-size", type=int, default=4801)
     args = ap.parse_args()
     print(f"== solve traffic at {args.solve_size}^2 x 3 f64, 8-device "
           "CPU mesh ==")
     solve_traffic(args.solve_size, args.solve_size)
     print("\n== full runner scan-body census ==")
     loop_body_census(args.grid)
-    tpu_aot(args.aot_size)
 
 
 if __name__ == "__main__":

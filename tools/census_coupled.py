@@ -1,16 +1,10 @@
-"""Collective census of the COUPLED sharded cycle (BENCHMARKS.md
-'coupled cycle' section).
+"""Collective census of the COUPLED sharded cycle on a CPU mesh of 8
+virtual devices: scan-body census of the coupled runner with
+per-all-gather byte sizes. With the mesh-aware xforc every gather must
+be bounded by the coarse atmospheric grid (ndxr^2 smaller than the
+ocean/fine grids).
 
-Produces, without TPU-pod hardware:
-  1. CPU-mesh (8 virtual devices) scan-body census of the coupled
-     runner with per-all-gather byte sizes: with the mesh-aware xforc
-     every gather must be bounded by the coarse atmospheric grid
-     (ndxr^2 smaller than the ocean/fine grids).
-  2. The REAL TPU answer via deviceless AOT compilation for a v5e:2x4
-     topology at double-gyre production scale (f32): same bound, plus
-     the async-a2a lowering of both fluids' pencil solves.
-
-Run: python tools/census_coupled.py [--aot] [--aot-scale N]
+Run: python tools/census_coupled.py
 """
 
 import argparse
@@ -30,8 +24,6 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-import numpy as np  # noqa: E402
-from jax.sharding import Mesh  # noqa: E402
 
 from qgcm_tpu.config import double_gyre_coupled, OceanConfig  # noqa: E402
 from qgcm_tpu.model import build_model  # noqa: E402
@@ -79,56 +71,9 @@ def cpu_census():
     _census(_body(txt), 8, cfg)
 
 
-def tpu_aot(scale):
-    import jax.numpy as jnp
-    try:
-        from jax.experimental import topologies
-        topo = topologies.get_topology_desc("v5e:2x4", "tpu")
-    except Exception as e:  # pragma: no cover
-        print("  AOT TPU compile unavailable:", e)
-        return
-    tmesh = Mesh(np.array(topo.devices).reshape(8, 1), ("y", "x"))
-    cfg = double_gyre_coupled(
-        nxta=384 // scale, nyta=96 // scale, nxaooc=60 // scale,
-        nyaooc=60 // scale, ndxr=16, dta=180.0, dtype="float32",
-        ocean=OceanConfig(dxo=5.0e3 * scale)).validate()
-    print(f"\n== TPU v5e 8-device AOT: coupled runner f32, ocean "
-          f"{cfg.nxpo}x{cfg.nypo}, atmos {cfg.nxpa}x{cfg.nypa}, "
-          f"ndxr={cfg.ndxr} ==")
-    model = build_model(cfg)
-
-    def shapes(tree):
-        return jax.tree_util.tree_map(
-            lambda x: jax.ShapeDtypeStruct(np.shape(x), jnp.float32),
-            tree)
-
-    ocean = shapes(init_ocean_state(model, init="rbal"))
-    atmos = shapes(init_atmos_state(model, init="rbal"))
-    run = make_coupled_runner(model, jit=False, mesh=tmesh,
-                              spectral_variant="a2a")
-    with jax.enable_x64(False):
-        # the async-a2a flag mesh_jit would set on a live TPU backend
-        jfn = jax.jit(run, static_argnames=("n_steps",),
-                      compiler_options={
-                          "xla_tpu_enable_async_all_to_all": "true"})
-        txt = jfn.lower(ocean, atmos, 2 * cfg.nstr).compile().as_text()
-    body = _body(txt)
-    _census(body, 4, cfg)
-    starts = len(re.findall(r" all-to-all-start", body))
-    dones = len(re.findall(r" all-to-all-done", body))
-    print(f"  async all-to-all start/done: {starts}/{dones}")
-
-
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--aot", action="store_true",
-                    help="also AOT-compile for a v5e topology")
-    ap.add_argument("--aot-scale", type=int, default=1,
-                    help="divide the dg production dims by N")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__).parse_args()
     cpu_census()
-    if args.aot:
-        tpu_aot(args.aot_scale)
 
 
 if __name__ == "__main__":
